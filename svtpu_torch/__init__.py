@@ -1,0 +1,28 @@
+"""svtpu_torch — the PyTorch/CUDA port of ``svtpu`` for NVIDIA Hopper.
+
+Plain tensor code is PyTorch; every Pallas kernel of ``svtpu`` on the
+ported path is a CUDA kernel written by hand for ``sm_90a`` (``csrc/``),
+built with ``nvcc`` at first use and bound through ``ctypes``
+(``ops/_build.py``). The package imports nothing of JAX or of ``svtpu``:
+``svtpu`` is the reference it is tested against (``tests/test_torch_*.py``).
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``; with no card and no explicit device they raise.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names one.
+
+    Raises when CUDA is asked for (explicitly or by default) and there is
+    no card, so nothing falls back to the CPU unasked.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "svtpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run on the CPU")
+    return dev

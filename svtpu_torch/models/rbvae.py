@@ -1,0 +1,278 @@
+"""Recurrent Binary VAE — one parameterized module covering the four
+reference variants (simple, contrastive, percep, triplet); the port of
+``svtpu/models/rbvae.py:41-256``.
+
+Public layout is the JAX package's: frames ``[B, T, H, W, C]`` in, latents
+``[B, T, L]`` out, reconstructions ``[B, T, H, W, C]``. Inside, the conv
+stacks run NCHW (channels-last memory) on torch's own layouts, and the
+parameters carry the reference torch state-dict names
+(``encoder_cnn.conv.{0,3,6}``, ``encoder_cnn.fc``, ``decoder_cnn.fc``,
+``decoder_cnn.deconv.{0,3,6}``, ``{encoder,decoder}_rnn.lstm.*``), so a
+reference ``.pt`` state dict loads as it is.
+
+``encode`` routes through the hand-written kernels when the config asks for
+them, as the JAX package routes through its Pallas kernels:
+``pallas_trunk`` → ``ops/conv_trunk_cuda.py`` (conv0+conv1),
+``pallas_sampler`` → ``ops/binarize_cuda.py``.
+
+Randomness is explicit: Binary-Concrete noise comes from a
+``torch.Generator`` (or an injected uniform ``u``), and the initial weights
+from the generator given to the constructor.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from svtpu_torch import resolve_device
+from svtpu_torch.config import RBVAEConfig
+from svtpu_torch.ops.binarize import binary_concrete
+from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+from svtpu_torch.ops.conv import Conv2dTorch, ConvTranspose2dTorch, Dense
+from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+from svtpu_torch.ops.lstm import LSTM
+
+_NOT_PORTED = ("int8_trunk", "conv0_s2d", "deconv_d2s")
+
+
+class RBVAEOutput(NamedTuple):
+    x_recon: torch.Tensor     # [B, T, H, W, C]
+    h_seq: torch.Tensor       # [B, T, L] encoder-LSTM output (post-binarize
+    #                           z for the simple variant)
+    z_seq: torch.Tensor       # [B, T, L] binarized latents
+    logits: torch.Tensor      # [B, T, L] conv-encoder logits
+
+
+def _stack(cfg: RBVAEConfig, convs, final_relu: bool) -> nn.Sequential:
+    """The reference's ``nn.Sequential``: conv, ReLU (+ Dropout) between
+    stages, so the conv indices are {0,3,6} with dropout and {0,2,4}
+    without, as in the reference state dicts."""
+    layers, n = [], len(convs)
+    for i, conv in enumerate(convs):
+        layers.append(conv)
+        if i < n - 1 or final_relu:
+            layers.append(nn.ReLU())
+        if i < n - 1 and cfg.conv_dropout > 0:
+            layers.append(nn.Dropout(cfg.conv_dropout))
+    return nn.Sequential(*layers)
+
+
+class ConvEncoder(nn.Module):
+    def __init__(self, cfg: RBVAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        k, s, p = cfg.conv_kernel, cfg.conv_stride, cfg.conv_padding
+        chans = (cfg.in_channels,) + tuple(cfg.conv_features)
+        self.conv = _stack(cfg, [Conv2dTorch(chans[i], chans[i + 1], k, s, p)
+                                 for i in range(len(cfg.conv_features))],
+                           cfg.conv_final_relu)
+        self.fc = Dense(cfg.encoded_dim, cfg.latent_dim)
+
+    def convs(self) -> list[Conv2dTorch]:
+        return [m for m in self.conv if isinstance(m, Conv2dTorch)]
+
+    def forward(self, x: torch.Tensor, trunk: str = "torch") -> torch.Tensor:
+        """``x [N, H, W, C]`` → logits ``[N, L]`` (inference: no dropout).
+
+        ``trunk``: "torch" (library convs) or "kernel" (the fused conv0+conv1
+        kernel, then conv2 as a library conv; 256x256 contrastive/triplet
+        geometry only).
+        """
+        c = self.cfg
+        dt = c.torch_dtype
+        convs = self.convs()
+        n = len(convs)
+        h = x.to(dt)
+        if trunk == "kernel":
+            if not (c.conv_features == (64, 64, 64) and c.in_channels == 3
+                    and (c.conv_kernel, c.conv_stride, c.conv_padding)
+                    == (3, 2, 1) and tuple(h.shape[1:3]) == (256, 256)):
+                raise ValueError("the fused trunk kernel supports only the "
+                                 "contrastive/triplet pixel geometry")
+            h = fused_conv01(h.contiguous(), convs[0].weight, convs[0].bias,
+                             convs[1].weight, convs[1].bias)
+            h = convs[2](h.permute(0, 3, 1, 2), dt)
+            if c.conv_final_relu:
+                h = h.relu()
+        elif trunk == "torch":
+            h = h.permute(0, 3, 1, 2)
+            for i, conv in enumerate(convs):
+                h = conv(h, dt)
+                if i < n - 1 or c.conv_final_relu:
+                    h = h.relu()
+        else:
+            raise ValueError(f"unknown trunk {trunk!r}")
+        # Flatten in torch's channel-major order, which the fc weight uses.
+        return self.fc(h.reshape(h.shape[0], -1), dt)
+
+
+class ConvDecoder(nn.Module):
+    def __init__(self, cfg: RBVAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        k, s, p = cfg.conv_kernel, cfg.conv_stride, cfg.conv_padding
+        feats = tuple(reversed(cfg.conv_features))
+        eh, ew = cfg.encoded_hw
+        self.fc = Dense(cfg.latent_dim, feats[0] * eh * ew)
+        # output_padding makes every stage exactly double H and W.
+        op = 1 if k == 3 else 0
+        chans = feats + (cfg.out_channels,)
+        self.deconv = _stack(
+            cfg, [ConvTranspose2dTorch(chans[i], chans[i + 1], k, s, p, op)
+                  for i in range(len(feats))], False)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """``z [N, L]`` → ``[N, H, W, C]`` (inference: no dropout)."""
+        c = self.cfg
+        dt = c.torch_dtype
+        eh, ew = c.encoded_hw
+        h = self.fc(z, dt).reshape(z.shape[0], -1, eh, ew)
+        deconvs = [m for m in self.deconv
+                   if isinstance(m, ConvTranspose2dTorch)]
+        for i, m in enumerate(deconvs):
+            h = m(h, dt)
+            if i < len(deconvs) - 1:
+                h = h.relu()
+        if c.decoder_sigmoid:
+            h = torch.sigmoid(h)
+        return h.permute(0, 2, 3, 1)
+
+
+class Seq2SeqBinaryVAE(nn.Module):
+    """CNN → LSTM → Binary-Concrete → LSTM → CNN sequence autoencoder.
+
+    ``device``: where the parameters live; CUDA unless ``"cpu"`` is asked
+    for (raises when there is no card). ``generator``: a CPU
+    ``torch.Generator`` for the initial weights (torch's default
+    distributions); seed 0 when omitted.
+    """
+
+    def __init__(self, cfg: RBVAEConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for flag in _NOT_PORTED:
+            if getattr(cfg, flag):
+                raise NotImplementedError(
+                    f"{flag} is not ported to svtpu_torch yet")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        dt, L = cfg.torch_dtype, cfg.latent_dim
+        self.encoder_cnn = ConvEncoder(cfg)
+        self.decoder_cnn = ConvDecoder(cfg)
+        self.encoder_rnn = LSTM(L, L, cfg.lstm_layers, cfg.lstm_residual, dt)
+        self.decoder_rnn = LSTM(L, L, cfg.lstm_layers, cfg.lstm_residual, dt)
+        self._init_weights(generator or torch.Generator().manual_seed(0))
+        self.to(dev)
+        self.eval()
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for convs and linears (torch's
+        default, fan_in as torch computes it), U(-1/sqrt(H), 1/sqrt(H)) for
+        the LSTMs — drawn from ``gen``."""
+        for m in self.modules():
+            if isinstance(m, (Conv2dTorch, ConvTranspose2dTorch, Dense)):
+                # weight[0] spans fan_in for all three layouts.
+                bound = 1 / math.sqrt(m.weight[0].numel())
+                bounds = {"weight": bound, "bias": bound}
+            elif isinstance(m, nn.LSTM):
+                bounds = {n: 1 / math.sqrt(m.hidden_size)
+                          for n, _ in m.named_parameters()}
+            else:
+                continue
+            for name, p in m.named_parameters(recurse=False):
+                bound = bounds[name]
+                p.copy_(torch.rand(p.shape, generator=gen) * (2 * bound)
+                        - bound)
+
+    def _encode_to_latent(self, x, temperature, hard, noise_scale,
+                          generator, u, sampler: str = "torch",
+                          trunk: str = "torch"):
+        """Conv trunk + encoder LSTM + binarization (inference).
+
+        ``sampler``: "torch" (the plain op) or "kernel" (the fused sampler
+        kernel; its noise is keyed by a seed drawn from ``generator``).
+        ``trunk``: "torch" or "kernel" (the fused conv0+conv1 kernel).
+        """
+        c = self.cfg
+
+        def binarize(t):
+            if sampler == "kernel":
+                if u is not None:
+                    raise ValueError("the sampler kernel draws its own noise; "
+                                     "an injected u needs sampler='torch'")
+                noisy = generator is not None
+                seed = (int(torch.randint(2 ** 31 - 1, (1,),
+                                          generator=generator,
+                                          device=generator.device))
+                        if noisy else 0)
+                return binary_concrete_fused(t, seed, temperature,
+                                             noise_scale, hard, c.bc_eps,
+                                             noisy)
+            if sampler != "torch":
+                raise ValueError(f"unknown sampler {sampler!r}")
+            return binary_concrete(t, generator, temperature, hard,
+                                   c.bc_eps, noise_scale, u=u)
+
+        B, T = x.shape[:2]
+        flat = x.reshape((B * T,) + tuple(x.shape[2:]))
+        logits = self.encoder_cnn(flat, trunk).reshape(B, T, c.latent_dim)
+        if c.binarize == "pre_rnn":
+            # simple variant: binarize conv logits, then run the LSTMs.
+            z_seq = binarize(logits)
+            return logits, self.encoder_rnn(z_seq), z_seq
+        h_seq = self.encoder_rnn(logits)
+        return logits, h_seq, binarize(h_seq)
+
+    def _require_noise_source(self, deterministic, generator, u):
+        if not deterministic and generator is None and u is None:
+            raise ValueError("noise needs an explicit torch.Generator (or an "
+                             "injected u); pass deterministic=True for none")
+
+    def forward(self, x: torch.Tensor, temperature=1.0, hard: bool = False,
+                noise_ratio: float = 0.1, *, deterministic: bool = False,
+                generator: Optional[torch.Generator] = None,
+                u: Optional[torch.Tensor] = None) -> RBVAEOutput:
+        """Full autoencoding pass (inference).
+
+        ``deterministic=False`` means dropout and noise, as in the reference;
+        dropout in training mode comes with the training slice and raises
+        here for variants that have it. Noise is drawn from ``generator`` or
+        taken from ``u`` (uniform [0, 1), shaped like the binarized tensor)
+        whenever either is given.
+        """
+        c = self.cfg
+        if not deterministic and c.conv_dropout > 0:
+            raise NotImplementedError(
+                "dropout in training mode is not ported yet; pass "
+                "deterministic=True (with a generator for noise)")
+        self._require_noise_source(deterministic, generator, u)
+        B, T = x.shape[:2]
+        noise_scale = noise_ratio if c.has_noise_ratio else 1.0
+        logits, h_seq, z_seq = self._encode_to_latent(
+            x, temperature, hard, noise_scale, generator, u)
+        d_in = h_seq if c.binarize == "pre_rnn" else z_seq
+        d_seq = self.decoder_rnn(d_in)
+        x_recon = self.decoder_cnn(d_seq.reshape(B * T, c.latent_dim))
+        x_recon = x_recon.reshape((B, T) + tuple(x_recon.shape[1:]))
+        return RBVAEOutput(x_recon=x_recon, h_seq=h_seq, z_seq=z_seq,
+                           logits=logits)
+
+    def encode(self, x: torch.Tensor, temperature=0.5, hard: bool = False,
+               noise_ratio: float = 0.1, *, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Binarized latents ``[B, T, L]`` only. Deterministic unless a
+        ``generator`` (or ``u``) is given; ``cfg.pallas_trunk`` and
+        ``cfg.pallas_sampler`` route through the hand-written kernels."""
+        c = self.cfg
+        self._require_noise_source(deterministic, generator, u)
+        noise_scale = noise_ratio if c.has_noise_ratio else 1.0
+        _, _, z_seq = self._encode_to_latent(
+            x, temperature, hard, noise_scale, generator, u,
+            sampler="kernel" if c.pallas_sampler else "torch",
+            trunk="kernel" if c.pallas_trunk else "torch")
+        return z_seq

@@ -1,0 +1,123 @@
+"""Fused Binary-Concrete sampler: the hand-written CUDA kernel
+(``csrc/binary_concrete.cu``) and its plain PyTorch version.
+
+Counterpart of ``svtpu/ops/binarize_pallas.py::binary_concrete_pallas``:
+per element, a 24-bit uniform ``u``, logistic noise
+``log(u+eps) - log(1-u+eps)``, ``y = sigmoid((x + scale*noise)/T)`` and, if
+``hard``, ``y > 0.5`` — in float32, stored in the logits' dtype. The random
+bits are Philox4x32-10 keyed by ``seed`` with the element index as the
+counter (four elements per draw). The plain version computes the very same
+bits with integer tensor arithmetic, so kernel and plain version agree
+element for element, not just in distribution. Inference only: no gradient.
+
+``binary_concrete_fused`` takes the plain version for a CPU tensor and the
+kernel for a CUDA tensor; it counts its kernel launches in
+``binary_concrete_fused.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from svtpu_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MASK = 0xFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """High and low 32-bit words of ``a * m`` for uint32 values held in
+    int64, without overflowing int64 (16-bit limbs)."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    m_hi, m_lo = m >> 16, m & 0xFFFF
+    low = a_lo * m_lo + ((a_hi * m_lo + a_lo * m_hi) << 16)
+    lo = low & _MASK
+    hi = (a_hi * m_hi + (low >> 32)) & _MASK
+    return hi, lo
+
+
+def philox4x32_10(counter: torch.Tensor, seed: int) -> torch.Tensor:
+    """Philox4x32-10 (Random123) of counters ``(counter, 0, 0, 0)`` under the
+    64-bit key ``seed``. ``counter``: int64 ``[G]`` → int64 ``[G, 4]`` holding
+    the four uint32 output words, as the kernel produces them."""
+    c0, c1 = counter & _MASK, (counter >> 32) & _MASK
+    c2, c3 = torch.zeros_like(c0), torch.zeros_like(c0)
+    k0, k1 = seed & _MASK, (seed >> 32) & _MASK
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+        hi0, lo0 = _mulhilo(c0, _M0)
+        hi1, lo1 = _mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def philox_uniform(n: int, seed: int, device=None) -> torch.Tensor:
+    """The kernel's ``u`` for elements ``0..n-1``: float32 in [0, 1)."""
+    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    bits = philox4x32_10(groups, seed).reshape(-1)[:n]
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def binary_concrete_fused_plain(logits: torch.Tensor, seed: int,
+                                temperature=0.5, noise_scale=1.0,
+                                hard: bool = True, eps: float = 1e-8,
+                                noisy: bool = True) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, on any device."""
+    x = logits.to(torch.float32)
+    if noisy:
+        u = philox_uniform(x.numel(), int(seed), x.device).reshape(x.shape)
+        noise = torch.log(u + eps) - torch.log(1.0 - u + eps)
+        x = x + torch.tensor(noise_scale, dtype=torch.float32) * noise
+    y = torch.sigmoid(x / torch.tensor(temperature, dtype=torch.float32))
+    if hard:
+        y = (y > 0.5).to(torch.float32)
+    return y.to(logits.dtype)
+
+
+def _check_seed(seed) -> int:
+    seed = int(seed)
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed must be in [0, 2**64): {seed}")
+    return seed
+
+
+def binary_concrete_fused(logits: torch.Tensor, seed: int,
+                          temperature=0.5, noise_scale=1.0,
+                          hard: bool = True, eps: float = 1e-8,
+                          noisy: bool = True) -> torch.Tensor:
+    """Sample Binary-Concrete values for logits of any shape in one pass.
+
+    CPU tensor: the plain version. CUDA tensor: the kernel, or an
+    exception — there is no fallback.
+    """
+    seed = _check_seed(seed)
+    if logits.device.type == "cpu":
+        return binary_concrete_fused_plain(logits, seed, temperature,
+                                           noise_scale, hard, eps, noisy)
+    if logits.device.type != "cuda":
+        raise ValueError(f"unsupported device {logits.device}")
+    if logits.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {logits.dtype}")
+    x = logits.contiguous()
+    out = torch.empty_like(x)
+    lib = _build.load("binary_concrete")
+    fn = lib.svt_binary_concrete
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_ulonglong, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _DTYPES[x.dtype],
+                 seed, float(temperature), float(noise_scale), float(eps),
+                 int(hard), int(noisy), _build.stream_handle(x.device))
+    _build.check(err, "binary_concrete")
+    binary_concrete_fused.launches += 1
+    return out
+
+
+binary_concrete_fused.launches = 0

@@ -1,0 +1,25 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
+import numpy as np
+
+import jax
+import jax.numpy as jnp
+
+from svtpu.models.rbvae import Seq2SeqBinaryVAE as JaxRBVAE
+
+
+def seeded_jax_params(jcfg, seed: int = 0):
+    """``svtpu`` RBVAE params drawn from a numpy seed: U(±1/sqrt(fan_in))
+    weights and U(±0.1) biases in the tree ``init`` would build. Only the
+    tree's shapes are traced; nothing is compiled."""
+    x0 = jnp.zeros((1, 1) + tuple(jcfg.input_hw) + (jcfg.in_channels,),
+                   jnp.float32)
+    shapes = jax.eval_shape(lambda k: JaxRBVAE(jcfg).init(
+        {"params": k}, x0, 1.0, False, deterministic=True),
+        jax.random.key(0))
+    rng = np.random.default_rng(seed)
+
+    def draw(leaf):
+        b = 1 / np.sqrt(np.prod(leaf.shape[:-1])) if leaf.ndim > 1 else 0.1
+        return rng.uniform(-b, b, leaf.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map(draw, shapes)

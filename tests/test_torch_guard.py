@@ -1,0 +1,75 @@
+"""Guards on the port's boundaries: it imports nothing of JAX or of the JAX
+package, and it never runs on the CPU unasked."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from svtpu_torch.config import rbvae_variant
+from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+from svtpu_torch.pipeline import VideoSymbolPipeline
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "svtpu")
+
+
+def _port_files():
+    return sorted((ROOT / "svtpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_svtpu():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
+           for mod in _imported_roots(f) if mod in FORBIDDEN]
+    assert bad == []
+
+
+def test_no_card_and_no_device_raises(monkeypatch):
+    """Entry points default to the card; without one they raise rather
+    than run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = rbvae_variant("contrastive", 8, input_hw=(32, 32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Seq2SeqBinaryVAE(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VideoSymbolPipeline(cfg, {})
+    Seq2SeqBinaryVAE(cfg, device="cpu")          # asked for: fine
+
+
+def test_wrappers_refuse_devices_without_their_kernel():
+    """Only a CPU tensor takes the plain version; any other device that is
+    not CUDA raises instead of being quietly computed elsewhere."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError):
+        binary_concrete_fused(torch.empty(4, 25, **meta), 1)
+    with pytest.raises(ValueError):
+        fused_conv01(torch.empty(1, 256, 256, 3, **meta),
+                     torch.empty(64, 3, 3, 3, **meta),
+                     torch.empty(64, **meta),
+                     torch.empty(64, 64, 3, 3, **meta),
+                     torch.empty(64, **meta))
+
+
+def test_unported_switches_raise():
+    for flag in ("int8_trunk", "conv0_s2d", "deconv_d2s"):
+        cfg = rbvae_variant("contrastive", 8, **{flag: True})
+        with pytest.raises(NotImplementedError):
+            Seq2SeqBinaryVAE(cfg, device="cpu")

@@ -1,0 +1,107 @@
+"""Parity: the port's VideoSymbolPipeline.run_frames vs svtpu's, on the CPU,
+with frames at a resolution the model does not take, so the resize runs."""
+import numpy as np
+import pytest
+import torch
+
+from svtpu.config import rbvae_variant as jax_variant
+from svtpu.pipeline import VideoSymbolPipeline as JaxPipeline
+from svtpu_torch.config import rbvae_variant
+from svtpu_torch.data.symbols import SymbolStore, pack_codes, unpack_codes
+from svtpu_torch.models.convert import from_jax_params
+from svtpu_torch.ops.image import resize_bilinear
+from svtpu_torch.pipeline import VideoSymbolPipeline
+
+from _torch_port import seeded_jax_params
+
+GEOM = dict(input_hw=(32, 32), conv_features=(16, 16, 16))
+LATENT = 12
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jax_variant("contrastive", LATENT, **GEOM)
+    return jcfg, seeded_jax_params(jcfg, seed=4)
+
+
+def _frames(n=6, hw=(45, 70), seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (n,) + hw + (3,),
+                                                np.uint8)
+
+
+def test_run_frames_codes_match_jax(models):
+    jcfg, params = models
+    frames = _frames()
+    ref = JaxPipeline(jcfg, params, noise=False).run_frames(frames)
+    tcfg = rbvae_variant("contrastive", LATENT, **GEOM)
+    got = VideoSymbolPipeline(tcfg, from_jax_params(params, tcfg),
+                              noise=False, device="cpu").run_frames(frames)
+    assert got.dtype == ref.dtype == np.uint8
+    assert got.shape == ref.shape == (6, LATENT)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_run_frames_kernel_routes_match_plain_routes(models):
+    """pallas_sampler routes through the sampler kernel's wrapper (its
+    plain version here); with noise off its codes are the plain op's."""
+    _, params = models
+    frames = _frames(seed=1)
+    out = {}
+    for flag in (False, True):
+        cfg = rbvae_variant("contrastive", LATENT, pallas_sampler=flag,
+                            **GEOM)
+        out[flag] = VideoSymbolPipeline(
+            cfg, from_jax_params(params, cfg), noise=False,
+            device="cpu").run_frames(frames)
+    np.testing.assert_array_equal(out[True], out[False])
+
+
+def test_noisy_codes_are_seeded_per_batch(models):
+    _, params = models
+    cfg = rbvae_variant("contrastive", LATENT, pallas_sampler=True, **GEOM)
+    pipe = VideoSymbolPipeline(cfg, from_jax_params(params, cfg),
+                               temperature=1.0, noise_ratio=3.0,
+                               device="cpu")
+    frames = _frames(n=16, seed=2)
+    a, b = pipe.run_frames(frames, 0), pipe.run_frames(frames, 0)
+    c = pipe.run_frames(frames, 1)
+    assert set(np.unique(a)) <= {0, 1}
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+
+
+def test_host_resize_matches_cv2_inter_linear(models):
+    """resize_on="host": the port resizes uint8 frames as the reference's
+    ``cv2.resize(..., INTER_LINEAR)`` does, to within cv2's fixed-point
+    rounding (one grey level)."""
+    cv2 = pytest.importorskip("cv2")
+    jcfg, params = models
+    frames = _frames(seed=3)
+    th, tw = GEOM["input_hw"]
+    ref = np.stack([cv2.resize(f, (tw, th), interpolation=cv2.INTER_LINEAR)
+                    for f in frames])
+    got = resize_bilinear(torch.from_numpy(frames).float(), (th, tw),
+                          antialias=False).round().clamp(0, 255) \
+        .to(torch.uint8).numpy()
+    diff = np.abs(got.astype(int) - ref.astype(int))
+    assert diff.max() <= 1 and np.mean(diff == 0) > 0.8
+    tcfg = rbvae_variant("contrastive", LATENT, **GEOM)
+    codes = VideoSymbolPipeline(tcfg, from_jax_params(params, tcfg),
+                                noise=False, resize_on="host",
+                                device="cpu").run_frames(frames)
+    ref_codes = JaxPipeline(jcfg, params, noise=False,
+                            resize_on="host").run_frames(frames)
+    assert codes.shape == ref_codes.shape == (6, LATENT)
+    assert np.mean(codes == ref_codes) > 0.95
+
+
+def test_symbol_store_round_trip(tmp_path):
+    codes = np.random.default_rng(5).integers(0, 2, (9, 25), np.uint8)
+    np.testing.assert_array_equal(unpack_codes(pack_codes(codes), 25), codes)
+    store = SymbolStore(codes, np.arange(100, 109),
+                        labels=np.arange(9) % 3)
+    store.save(tmp_path / "s.npz")
+    back = SymbolStore.load(tmp_path / "s.npz")
+    np.testing.assert_array_equal(back.codes, codes)
+    np.testing.assert_array_equal(back.code_of(104), codes[4])
+    np.testing.assert_array_equal(back.labels, np.arange(9) % 3)
