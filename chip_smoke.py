@@ -3,15 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``svtpu_torch/csrc`` (into ``build/``),
-holds each against its plain PyTorch version, drives the flagship encode
-path — the committed contrastive RBVAE (``results/p_hardened_params.npz``,
-latent 25, bf16, 256x256 RGB, batch 512) through
-``VideoSymbolPipeline.run_frames`` with both kernels switched on — and times
-the encode and each kernel beside its plain version, a library call and its
-bound. Every check that fails raises, so the exit code is non-zero; the last
-line of standard output is ``{"ok": true, "device": {...}}`` only when every
-phase passed. Needs one CUDA card; exits non-zero without one.
+Builds the hand-written kernels from ``svtpu_torch/csrc`` (into ``build/``)
+and holds each against its plain PyTorch version. Then it drives two paths
+through ``VideoSymbolPipeline.run_frames``, each with its kernels switched
+on and their launches counted:
+
+  * the pixel path: the committed contrastive RBVAE
+    (``results/p_hardened_params.npz``, latent 25, bf16, 256x256 RGB,
+    batch 512) through ``fused_conv01`` and ``binary_concrete``;
+  * the perceptual path: the SD first stage at its published widths
+    (``PerceptualConfig()``, bf16, seeded random weights) in
+    ``PerceptualEncoder`` batches of 8 through ``flash_attention``, then the
+    ``percep-flagship`` RBVAE (latent 25, LSTM residual) through
+    ``binary_concrete``, on 16 seeded 720x1280 frames; and one
+    ``decode_latents`` (the decoder's attention).
+
+Each path's deterministic codes are held against its plain path's, and the
+paths and every kernel are timed beside the plain version, a library call
+and the kernel's bound. Every check that fails raises, so the exit code is
+non-zero; the last line of standard output is ``{"ok": true, "device":
+{...}}`` only when every phase passed. Needs one CUDA card; exits non-zero
+without one.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +43,11 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 512
 LATENT = 25
 TEMPERATURE = 0.2
+# The perceptual path: 16 frames, SD-encoded in batches of 8; the SD
+# encoder's bottleneck attention at 1280x704 is [B, N, D] = [8, 14080, 512].
+PERCEP_FRAMES = 16
+PERCEP_BATCH = 8
+PERCEP_ATTN = (PERCEP_BATCH, 88 * 160, 512)
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -179,6 +197,75 @@ def phase_sampler_kernel() -> dict:
     return {"max_abs_err": err}
 
 
+def attention_inputs(B, N, D, dt, seed, spread=1.0, dominant=False):
+    """q, k, v on the card. ``spread`` is the scores' standard deviation
+    (q and k entries of variance ``spread``); ``dominant`` gives every
+    query one key whose score stands ~``4 sqrt(D)`` above the rest."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, N, D, generator=g) for _ in range(3))
+    q, k = q * spread ** 0.5, k * spread ** 0.5
+    if dominant:
+        perm = torch.randperm(N, generator=g)
+        k[:, perm] = 4.0 * q / q.norm(dim=-1, keepdim=True) * D ** 0.5 \
+            + 0.1 * k[:, perm]
+    return [t.cuda().to(dt) for t in (q, k, v)]
+
+
+def attention_error(B, N, D, dt, seed, **kw):
+    """flash_attention against blocked_attention on the same inputs: the
+    max abs error and one bf16 step at the output's largest magnitude."""
+    from svtpu_torch.ops.attention import blocked_attention, flash_attention
+
+    q, k, v = attention_inputs(B, N, D, dt, seed, **kw)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = blocked_attention(q, k, v)
+    require(got.shape == ref.shape == (B, N, D) and got.dtype == dt,
+            "flash_attention: shape or dtype")
+    require(bool(torch.isfinite(got.float()).all()),
+            "flash_attention: non-finite output")
+    err = float((got.float() - ref.float()).abs().max())
+    return err, 2.0 ** -7 * float(ref.float().abs().max())
+
+
+def phase_attention_kernel() -> dict:
+    """flash_attention vs its plain version: f32 at small shapes held to
+    1e-3 (TF32 off); bf16 held to two bf16 steps at the output's scale (p
+    is rounded to bf16 in the kernel and not in the plain version). Scores
+    spread wide (std 8) and one case with a dominant key per row, so that a
+    wrong running-max rescale shows."""
+    B, N, D = PERCEP_ATTN
+    f32 = {"[2,300,64] f32 spread 8": (2, 300, 64, torch.float32, 10,
+                                       dict(spread=8.0)),
+           "[1,777,512] f32 spread 8": (1, 777, 512, torch.float32, 11,
+                                        dict(spread=8.0))}
+    bf16 = {f"[{B},{N},{D}] bf16 spread 8": (B, N, D, torch.bfloat16, 12,
+                                             dict(spread=8.0)),
+            f"[{B},{N},{D}] bf16 spread 1": (B, N, D, torch.bfloat16, 13,
+                                             {}),
+            "[2,1000,64] bf16 spread 8 (ragged)": (2, 1000, 64,
+                                                   torch.bfloat16, 14,
+                                                   dict(spread=8.0)),
+            "[2,2048,512] bf16 dominant key": (2, 2048, 512, torch.bfloat16,
+                                               15, dict(dominant=True)),
+            "[1,4000,96] bf16 dominant key (ragged)": (
+                1, 4000, 96, torch.bfloat16, 16, dict(dominant=True))}
+    out = {}
+    for name, (b, n, d, dt, seed, kw) in f32.items():
+        err, _ = attention_error(b, n, d, dt, seed, **kw)
+        print(f"check flash_attention vs plain, {name}: max_abs_err "
+              f"{err:.3e} (limit 1e-3)")
+        require(err < 1e-3, f"flash_attention {name} disagrees")
+    for name, (b, n, d, dt, seed, kw) in bf16.items():
+        err, step = attention_error(b, n, d, dt, seed, **kw)
+        out[name] = err
+        print(f"check flash_attention vs plain, {name}: max_abs_err "
+              f"{err:.3e} (limit {2 * step:.3e}, two bf16 steps at the "
+              f"output's scale)")
+        require(err <= 2 * step, f"flash_attention {name} disagrees")
+    return {"max_abs_err": out[f"[{B},{N},{D}] bf16 spread 8"]}
+
+
 def flagship(pallas: bool, dtype: str = "bfloat16"):
     from svtpu_torch.config import rbvae_variant
     from svtpu_torch.models.convert import from_jax_params, load_params_npz
@@ -303,7 +390,270 @@ def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
                   f"{spread:.3f} [{card}]")
 
 
-def phase_kernel_times(card: str, main: dict, errs: dict) -> list:
+def percep_weights(frames: np.ndarray) -> dict:
+    """Seeded random weights at the published widths: the SD first stage
+    (``PerceptualConfig()``, ~84M parameters) and the percep RBVAE of the
+    ``percep-flagship`` preset.
+
+    Drawn at the scale a trained model keeps at its interfaces, so that the
+    codes depend on the frames: the quant conv's mean rows are scaled so
+    that the scaled latents of ``frames`` have unit std (what
+    ``scale_factor`` gives SD's trained weights), and the RBVAE's encoder
+    convs (He-uniform, x sqrt 6) and fc (unit variance, x sqrt 3) keep the
+    signal's scale, where torch's default init shrinks it ~6x a layer.
+    """
+    from svtpu_torch.config import PerceptualConfig
+    from svtpu_torch.models.autoencoder_kl import (AutoencoderKL,
+                                                   DiagonalGaussian)
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+
+    cfg = PerceptualConfig()
+    ae = AutoencoderKL(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(20))
+    with torch.inference_mode():
+        x = torch.from_numpy(frames).cuda().float() * (2.0 / 255.0) - 1.0
+        mean = DiagonalGaussian.from_moments(ae.encode(x)).mean
+        gain = 1.0 / float((cfg.scale_factor * mean).std())
+    ae_sd = {k: v.clone() for k, v in ae.state_dict().items()}
+    for k in ("quant_conv.weight", "quant_conv.bias"):
+        ae_sd[k][:cfg.embed_dim] *= gain
+    rb_sd = Seq2SeqBinaryVAE(percep_rbvae_cfg(True), device="cpu",
+                             generator=torch.Generator().manual_seed(21)
+                             ).state_dict()
+    for k, v in rb_sd.items():
+        if k.startswith("encoder_cnn.conv.") and k.endswith(".weight"):
+            v *= 6 ** 0.5
+    rb_sd["encoder_cnn.fc.weight"] *= 3 ** 0.5
+    print(f"percep weights: quant_conv mean rows x {gain:.3f} for unit-std "
+          f"scaled latents")
+    return {"ae": ae_sd, "rbvae": rb_sd}
+
+
+def percep_rbvae_cfg(kernel: bool, dtype: str = "bfloat16"):
+    from svtpu_torch.config import rbvae_variant
+
+    return rbvae_variant("percep", LATENT, compute_dtype=dtype,
+                         lstm_residual=True, pallas_sampler=kernel)
+
+
+def percep_pipeline(weights: dict, kernel: bool, dtype: str = "bfloat16",
+                    deterministic: bool = False):
+    """``VideoSymbolPipeline(percep=PerceptualEncoder(...))``: both kernels
+    on (``kernel``) or both plain versions."""
+    from svtpu_torch.config import PerceptualConfig
+    from svtpu_torch.perceptual.embed import PerceptualEncoder
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    enc = PerceptualEncoder(weights["ae"],
+                            PerceptualConfig(compute_dtype=dtype),
+                            batch_size=PERCEP_BATCH,
+                            stochastic=not deterministic, use_kernel=kernel)
+    return VideoSymbolPipeline(percep_rbvae_cfg(kernel, dtype),
+                               weights["rbvae"], percep=enc,
+                               noise=not deterministic)
+
+
+def phase_percep_path(card: str) -> dict:
+    """The perceptual path at full width: 16 seeded 720x1280 frames through
+    ``run_frames`` (host resize to 1280x704, SD encode in batches of 8 with
+    the attention kernel, percep RBVAE encode with the sampler kernel),
+    then one ``decode_latents`` (the decoder's attention). Launches counted;
+    then the kernel path against the plain path, deterministic."""
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.image import resize_u8
+
+    t0 = time.perf_counter()
+    frames = np.random.default_rng(7).integers(
+        0, 256, (PERCEP_FRAMES, 720, 1280, 3), np.uint8)
+    weights = percep_weights(frames[:2, :704])
+    pipe = percep_pipeline(weights, True)
+    print(f"percep path: weights and pipeline built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    counters = (flash_attention, binary_concrete_fused, fused_conv01)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    codes = pipe.run_frames(frames, 0)
+    z = pipe.percep.encode_frames(frames[:2, :704])
+    pixels = pipe.percep.decode_latents(z)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "binary_concrete": binary_concrete_fused.launches,
+                "fused_conv01": fused_conv01.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"percep path: run_frames x1 ({PERCEP_FRAMES} frames 720x1280, SD "
+          f"batch {PERCEP_BATCH}, noise on) + encode_frames x1 (2 frames) + "
+          f"decode_latents x1 (2 latents); launches {launches}; peak device "
+          f"memory {peak:.2f} GiB")
+    for name in ("flash_attention", "binary_concrete"):
+        require(launches[name] > 0, f"percep path never launched {name}")
+    require(codes.shape == (PERCEP_FRAMES, LATENT) and codes.dtype == np.uint8
+            and set(np.unique(codes)) <= {0, 1}, "percep noisy codes")
+    print(f"percep path: codes: share of ones {codes.mean():.3f}, bits that "
+          f"differ across the {PERCEP_FRAMES} frames "
+          f"{int((codes.min(0) != codes.max(0)).sum())} of {LATENT}; "
+          f"latents std {z.std():.3f}")
+    require(z.shape == (2, 88, 160, 4) and np.isfinite(z).all(),
+            "percep latents")
+    require(pixels.shape == (2, 704, 1280, 3) and np.isfinite(pixels).all()
+            and pixels.min() >= 0.0 and pixels.max() <= 1.0,
+            "percep decoded pixels")
+
+    # The slice against its plain path: AE at its mode, noise off.
+    sd_frames = resize_u8(torch.from_numpy(frames), (704, 1280)).numpy()
+    agree, rel = {}, {}
+    for dtype, n in (("bfloat16", PERCEP_FRAMES), ("float32", 4)):
+        det = {k: percep_pipeline(weights, k, dtype, deterministic=True)
+               for k in (True, False)}
+        lat = {k: p.percep.encode_frames(sd_frames[:n]) for k, p in
+               det.items()}
+        rel[dtype] = float(np.abs(lat[True] - lat[False]).max()
+                           / np.abs(lat[False]).max())
+        c = {k: p.run_frames(frames[:n]) for k, p in det.items()}
+        agree[dtype] = float((c[True] == c[False]).mean())
+        del det
+    print(f"percep path: kernel path vs plain path, deterministic: latents "
+          f"max abs err / max |latent| {rel} (limit 0.05 bf16, 1e-3 f32); "
+          f"code agreement {agree} (limit 0.98 bf16 on {PERCEP_FRAMES} "
+          f"frames, 0.99 f32 on 4)")
+    require(rel["bfloat16"] <= 0.05 and rel["float32"] <= 1e-3,
+            "percep latents: kernel path disagrees with the plain path")
+    require(agree["bfloat16"] >= 0.98 and agree["float32"] >= 0.99,
+            "percep codes: kernel path disagrees with the plain path")
+
+    # Times: run_frames, encode_frames per batch of 8, decode.
+    for i in range(2):
+        pipe.run_frames(frames, i)
+    fps = []
+    for t in range(5):
+        t0 = time.perf_counter()
+        pipe.run_frames(frames, 10 + t)
+        fps.append(PERCEP_FRAMES / (time.perf_counter() - t0))
+    med = statistics.median(fps)
+    print(f"time: percep run_frames ({PERCEP_FRAMES} uint8 720x1280 host "
+          f"frames in, codes out), SD batch {PERCEP_BATCH}: {med:.2f} "
+          f"frames/s median of 5, spread {(max(fps) - min(fps)) / med:.3f} "
+          f"[{card}]")
+    batch = sd_frames[:PERCEP_BATCH]
+    enc_ms = []
+    for t in range(7):
+        t0 = time.perf_counter()
+        pipe.percep.encode_frames(batch)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    enc_ms = enc_ms[2:]
+    med_enc = statistics.median(enc_ms)
+    print(f"time: PerceptualEncoder.encode_frames, {PERCEP_BATCH} uint8 "
+          f"1280x704 host frames in, latents out: {med_enc:.3f} ms per batch "
+          f"median of 5, spread {(max(enc_ms) - min(enc_ms)) / med_enc:.3f} "
+          f"[{card}]")
+    phase_percep_breakdown(card, pipe, frames, batch)
+    return {"launches": launches, "fps": med, "encode_ms": med_enc}
+
+
+def phase_percep_breakdown(card: str, pipe, frames, batch) -> None:
+    """Where one SD batch's time goes: each stage of encode_frames and the
+    RBVAE encode alone, on the input the path gives it, CUDA events; the
+    host resize on the host clock."""
+    from svtpu_torch.models.autoencoder_kl import DiagonalGaussian
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.image import resize_u8
+
+    host = torch.from_numpy(frames)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        resize_u8(host, (704, 1280))
+    print(f"time: stage host resize {PERCEP_FRAMES} uint8 720x1280 -> "
+          f"1280x704 (CPU): {(time.perf_counter() - t0) / 3 * 1e3:.3f} ms "
+          f"[{card}]")
+    model = pipe.percep.model
+    enc, dt = model.encoder, model.cfg.torch_dtype
+    u8 = torch.from_numpy(batch)
+    stages = {}
+    with torch.inference_mode():
+        x = u8.cuda().float() * (2.0 / 255.0) - 1.0
+        stages[f"copy {PERCEP_BATCH} uint8 1280x704 frames to the card"] = \
+            lambda: u8.cuda()
+        h = x.permute(0, 3, 1, 2)
+        stages["encoder conv_in"] = (lambda a: enc.conv_in(a, dt), h)
+        h = enc.conv_in(h, dt)
+
+        def level(lv):
+            def run(a):
+                for block in lv.block:
+                    a = block(a, dt)
+                return lv.downsample(a, dt) if hasattr(lv, "downsample") \
+                    else a
+            return run
+        for i, lv in enumerate(enc.down):
+            fn = level(lv)
+            stages[f"encoder level {i} ({tuple(h.shape[1:])})"] = (fn, h)
+            if i == 0:
+                block = lv.block[0]
+                stages["  of which one GroupNorm+SiLU (f32, then bf16)"] = (
+                    lambda a: block.norm1(a, dt), h)
+                stages["  of which one conv 128->128 k3 (cuDNN)"] = (
+                    lambda a: block.conv1(a, dt), block.norm1(h, dt))
+            h = fn(h)
+        mid = enc.mid
+        stages["encoder mid.block_1"] = (lambda a: mid.block_1(a, dt), h)
+        h = mid.block_1(h, dt)
+        stages["encoder mid.attn_1 (norm, q/k/v, kernel, proj_out)"] = (
+            lambda a: mid.attn_1(a, dt), h)
+        qkv = [m(mid.attn_1.norm(h, dt), dt).flatten(2).transpose(1, 2)
+               .contiguous() for m in (mid.attn_1.q, mid.attn_1.k,
+                                       mid.attn_1.v)]
+        stages["  of which the flash_attention kernel"] = (
+            lambda a: flash_attention(*a), qkv)
+        h = mid.attn_1(h, dt)
+        stages["encoder mid.block_2"] = (lambda a: mid.block_2(a, dt), h)
+        h = mid.block_2(h, dt)
+        stages["encoder norm_out + conv_out"] = (
+            lambda a: enc.conv_out(enc.norm_out(a, dt), dt), h)
+        h = enc.conv_out(enc.norm_out(h, dt), dt)
+        stages["quant_conv + posterior mode + scale"] = (
+            lambda a: model.cfg.scale_factor * DiagonalGaussian.from_moments(
+                model.quant_conv(a, dt).permute(0, 2, 3, 1)).mode(), h)
+        lat = torch.randn(PERCEP_FRAMES, 1, 88, 160, 4, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        stages[f"percep RBVAE encode ({PERCEP_FRAMES} frames)"] = (
+            lambda a: pipe.model.encode(a, TEMPERATURE, True, 0.1,
+                                        generator=gen), lat)
+        for name, st in stages.items():
+            fn, arg = (st, None) if callable(st) else st
+            call = fn if arg is None else (lambda f=fn, a=arg: f(a))
+            ms, spread = cuda_ms(call, warmup=2, trials=3, iters=2)
+            print(f"time: stage {name}, batch {PERCEP_BATCH}: {ms:.4f} ms, "
+                  f"spread {spread:.3f} [{card}]")
+
+
+def attention_library(q, k, v):
+    """One PyTorch call computing the same attention, and its backend:
+    ``F.scaled_dot_product_attention`` on ``[B, 1, N, D]`` with the first
+    backend that takes D = 512 (flash is limited to D <= 256)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(b=backend):
+            with sdpa_kernel([b]):
+                return F.scaled_dot_product_attention(q4, k4, v4)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    raise AssertionError("no scaled_dot_product_attention backend ran")
+
+
+def phase_kernel_times(card: str, main: dict, errs: dict,
+                       percep: dict) -> list:
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
@@ -357,7 +707,8 @@ def phase_kernel_times(card: str, main: dict, errs: dict) -> list:
         name="binary_concrete", route="cuda",
         source="svtpu_torch/csrc/binary_concrete.cu",
         replaces="svtpu/ops/binarize_pallas.py:25",
-        launches=main["launches"]["binary_concrete"],
+        launches=(main["launches"]["binary_concrete"]
+                  + percep["launches"]["binary_concrete"]),
         max_abs_err=errs["binary_concrete"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=None))
@@ -365,7 +716,38 @@ def phase_kernel_times(card: str, main: dict, errs: dict) -> list:
           f"kernel {ms:.4f} ms (spread {sp:.3f}), plain {plain_ms:.4f} ms, "
           f"bound {max(bound.values()):.2e} ms ({max(bound, key=bound.get)})"
           f", library none, launches per encode "
-          f"{main['per_encode']['binary_concrete']:.0f} [{card}]")
+          f"{main['per_encode']['binary_concrete']:.0f}, on the percep path "
+          f"{percep['launches']['binary_concrete']} [{card}]")
+
+    from svtpu_torch.ops.attention import blocked_attention, flash_attention
+
+    B, N, D = PERCEP_ATTN
+    q, k, v = attention_inputs(B, N, D, torch.bfloat16, 17)
+    ms, sp = cuda_ms(lambda: flash_attention(q, k, v), warmup=3, iters=3)
+    plain_ms, _ = cuda_ms(lambda: blocked_attention(q, k, v), warmup=2,
+                          trials=3, iters=2)
+    lib, backend = attention_library(q, k, v)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lib_ms, _ = cuda_ms(lib, warmup=3, iters=3)
+    flops = 4 * B * N * N * D
+    bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+             "bytes": 4 * B * N * D * 2 / PEAK_BYTES * 1e3}
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="svtpu_torch/csrc/flash_attention.cu",
+        replaces="svtpu/ops/attention.py:26",
+        launches=percep["launches"]["flash_attention"],
+        max_abs_err=errs["flash_attention"]["max_abs_err"], ms=ms,
+        plain_ms=plain_ms, bound_ms=max(bound.values()),
+        bound_by=max(bound, key=bound.get), library_ms=lib_ms))
+    print(f"time: flash_attention bf16 [{B},{N},{D}]: kernel {ms:.3f} ms "
+          f"(spread {sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f} ms, scaled_dot_product_attention ({backend}) "
+          f"{lib_ms:.3f} ms, bound {max(bound.values()):.3f} ms "
+          f"({max(bound, key=bound.get)}: {flops / 1e12:.3f} TFLOP), "
+          f"launches on the percep path "
+          f"{percep['launches']['flash_attention']} [{card}]")
     return rows
 
 
@@ -380,9 +762,11 @@ def main() -> None:
     card = phase_toolchain()
     phase_build()
     errs = {"fused_conv01": phase_conv_kernel(),
-            "binary_concrete": phase_sampler_kernel()}
+            "binary_concrete": phase_sampler_kernel(),
+            "flash_attention": phase_attention_kernel()}
     main_path = phase_main_path(card)
-    rows = phase_kernel_times(card, main_path, errs)
+    percep = phase_percep_path(card)
+    rows = phase_kernel_times(card, main_path, errs, percep)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

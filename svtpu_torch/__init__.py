@@ -26,3 +26,21 @@ def resolve_device(device=None) -> torch.device:
             "svtpu_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+_M64 = (1 << 64) - 1
+
+
+def batch_seed(seed: int, batch_index: int) -> int:
+    """One noise seed per batch from ``(seed, batch index)`` — the port's
+    counterpart of ``jax.random.fold_in(key(seed), i)``.
+
+    The pair is mixed by SplitMix64's finaliser, so that every bit of the
+    result depends on both: a CPU ``torch.Generator`` seeds its Mersenne
+    Twister from the low 32 bits only.
+    """
+    x = (((int(seed) & 0xFFFFFFFF) << 32 | (int(batch_index) & 0xFFFFFFFF))
+         + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)

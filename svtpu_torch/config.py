@@ -1,5 +1,6 @@
-"""RBVAE configuration — the port's own copy of ``svtpu.config``'s
-``RBVAEConfig`` and ``rbvae_variant`` (``svtpu/config.py:114-254``).
+"""Configurations — the port's own copy of ``svtpu.config``'s
+``RBVAEConfig``, ``rbvae_variant`` (``svtpu/config.py:114-254``) and
+``PerceptualConfig`` (``:464-479``).
 
 Field names and defaults are the reference's, so one config means the same
 model in both packages. ``pallas_trunk`` / ``pallas_sampler`` keep their
@@ -105,3 +106,25 @@ def rbvae_variant(name: str, latent_dim: int = 32, *,
     cfg.update(base)
     cfg.update(overrides)
     return RBVAEConfig(**cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class PerceptualConfig:
+    """SD AutoencoderKL first-stage config (v1-inference.yaml:46-67)."""
+
+    embed_dim: int = 4
+    z_channels: int = 4
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    in_channels: int = 3
+    out_ch: int = 3
+    scale_factor: float = 0.18215
+    # Preprocessing: resize target before %32 snap
+    # (``get_percep_embeddings.py:59-66``) — 1280x720 → 1280x704.
+    resize_wh: Tuple[int, int] = (1280, 720)
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)

@@ -38,7 +38,8 @@ def load_params_npz(path: str | Path) -> dict:
     return tree
 
 
-def _t(a) -> torch.Tensor:
+def f32_tensor(a) -> torch.Tensor:
+    """A float32 CPU tensor holding a copy of ``a`` (numpy or array-like)."""
     return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
@@ -58,25 +59,27 @@ def from_jax_params(tree: Mapping, cfg: RBVAEConfig) -> Dict[str, torch.Tensor]:
     enc, dec = p["encoder_cnn"], p["decoder_cnn"]
     for s in range(len(cfg.conv_features)):
         conv, deconv = enc[f"conv_{s}"], dec[f"deconv_{s}"]
-        sd[f"encoder_cnn.conv.{s * step}.weight"] = _t(
+        sd[f"encoder_cnn.conv.{s * step}.weight"] = f32_tensor(
             np.transpose(conv["kernel"], (3, 2, 0, 1)))
-        sd[f"encoder_cnn.conv.{s * step}.bias"] = _t(conv["bias"])
-        sd[f"decoder_cnn.deconv.{s * step}.weight"] = _t(
+        sd[f"encoder_cnn.conv.{s * step}.bias"] = f32_tensor(conv["bias"])
+        sd[f"decoder_cnn.deconv.{s * step}.weight"] = f32_tensor(
             np.transpose(deconv["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1])
-        sd[f"decoder_cnn.deconv.{s * step}.bias"] = _t(deconv["bias"])
-    sd["encoder_cnn.fc.weight"] = _t(
+        sd[f"decoder_cnn.deconv.{s * step}.bias"] = f32_tensor(deconv["bias"])
+    sd["encoder_cnn.fc.weight"] = f32_tensor(
         hwc_to_chw_cols(np.asarray(enc["fc"]["kernel"]).T))
-    sd["encoder_cnn.fc.bias"] = _t(enc["fc"]["bias"])
-    sd["decoder_cnn.fc.weight"] = _t(
+    sd["encoder_cnn.fc.bias"] = f32_tensor(enc["fc"]["bias"])
+    sd["decoder_cnn.fc.weight"] = f32_tensor(
         hwc_to_chw_cols(np.asarray(dec["fc"]["kernel"])).T)
-    sd["decoder_cnn.fc.bias"] = _t(
+    sd["decoder_cnn.fc.bias"] = f32_tensor(
         np.asarray(dec["fc"]["bias"]).reshape(H, W, C).transpose(2, 0, 1)
         .reshape(-1))
     for name in ("encoder_rnn", "decoder_rnn"):
         rnn = p[name]
         for k in range(cfg.lstm_layers):
-            sd[f"{name}.lstm.weight_ih_l{k}"] = _t(np.asarray(rnn[f"w_ih_{k}"]).T)
-            sd[f"{name}.lstm.weight_hh_l{k}"] = _t(np.asarray(rnn[f"w_hh_{k}"]).T)
-            sd[f"{name}.lstm.bias_ih_l{k}"] = _t(rnn[f"b_{k}"])
+            sd[f"{name}.lstm.weight_ih_l{k}"] = f32_tensor(
+                np.asarray(rnn[f"w_ih_{k}"]).T)
+            sd[f"{name}.lstm.weight_hh_l{k}"] = f32_tensor(
+                np.asarray(rnn[f"w_hh_{k}"]).T)
+            sd[f"{name}.lstm.bias_ih_l{k}"] = f32_tensor(rnn[f"b_{k}"])
             sd[f"{name}.lstm.bias_hh_l{k}"] = torch.zeros(4 * L)
     return sd

@@ -26,7 +26,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "svtpu_torch"
-SOURCES = ("binary_concrete", "fused_conv01")
+SOURCES = ("binary_concrete", "flash_attention", "fused_conv01")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

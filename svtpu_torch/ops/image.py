@@ -32,3 +32,11 @@ def resize_bilinear(x: torch.Tensor, hw: tuple[int, int],
     y = F.interpolate(nchw, size=tuple(hw), mode="bilinear",
                       align_corners=False, antialias=antialias)
     return y.permute(0, 2, 3, 1).reshape(lead + (hw[0], hw[1], C))
+
+
+def resize_u8(frames: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """uint8 ``[N, H, W, C]`` frames resized as the reference's host-side
+    ``cv2.resize(..., INTER_LINEAR)`` does (no antialiasing; within one
+    grey level of cv2's fixed-point rounding), back to uint8."""
+    return resize_bilinear(frames.float(), hw, antialias=False) \
+        .round().clamp(0, 255).to(torch.uint8)

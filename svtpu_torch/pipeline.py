@@ -1,13 +1,15 @@
 """Frames → binary-symbol serving pipeline (``svtpu/pipeline.py:30-97,
-155-180``), pixel frames only.
+155-180``).
 
-  uint8 frames (host) → device: → float [0,1] → bilinear resize
-    → RBVAE encode (hard Binary-Concrete codes) → codes (host)
+  pixel path:  uint8 frames (host) → device: → float [0,1] → bilinear
+               resize → RBVAE encode (hard Binary-Concrete codes) → codes
+  percep path: uint8 frames (host) → host resize to the SD input (1280x704)
+               → ``PerceptualEncoder.encode_frames`` (SD latents, the
+               attention kernel inside) → percep RBVAE encode → codes
 
-With ``cfg.pallas_trunk`` and ``cfg.pallas_sampler`` set, the encode runs
-through the hand-written CUDA kernels. Video decode (``run_video``) and the
-perceptual (SD-latent) path are later slices of the port and raise
-``NotImplementedError``.
+With ``cfg.pallas_trunk`` and ``cfg.pallas_sampler`` set, the RBVAE encode
+runs through the hand-written CUDA kernels. Video decode (``run_video``) is
+a later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,16 +18,11 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from svtpu_torch import resolve_device
+from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
-from svtpu_torch.ops.image import resize_bilinear, to_float01
-
-
-def batch_seed(seed: int, batch_index: int) -> int:
-    """One noise seed per batch from ``(seed, batch index)`` — the port's
-    counterpart of ``jax.random.fold_in(key(seed), i)``."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(batch_index) & 0xFFFFFFFF)
+from svtpu_torch.ops.image import resize_bilinear, resize_u8, to_float01
+from svtpu_torch.perceptual.embed import preprocess_size
 
 
 class VideoSymbolPipeline:
@@ -34,6 +31,8 @@ class VideoSymbolPipeline:
     Args:
       cfg / params: the RBVAE model; ``params`` is its torch state dict
         (reference names, e.g. from ``models.convert.from_jax_params``).
+      percep: optional ``PerceptualEncoder``: frames are resized on the
+        host to the SD input and SD-encoded first (the percep-RBVAE path).
       temperature / hard / noise / noise_ratio: encode protocol (defaults =
         reference eval: temperature 0.2, hard, noise on).
       seed: noise seed; batch ``i`` draws from ``batch_seed(seed, i)``.
@@ -49,9 +48,6 @@ class VideoSymbolPipeline:
                  hard: bool = True, noise: bool = True,
                  noise_ratio: float = 0.1, seed: int = 0,
                  resize_on: str = "device", device=None):
-        if percep is not None:
-            raise NotImplementedError(
-                "the perceptual path is not ported to svtpu_torch yet")
         if resize_on not in ("device", "host"):
             raise ValueError(f"resize_on must be 'device' or 'host': "
                              f"{resize_on!r}")
@@ -65,6 +61,10 @@ class VideoSymbolPipeline:
         self.noise_ratio = noise_ratio
         self.seed = seed
         self.resize_on = resize_on
+        self.percep = percep
+        if percep is not None:
+            w, h = preprocess_size(percep.cfg.resize_wh)
+            self._sd_hw = (h, w)
 
     def run_video(self, video_path: str,
                   limit: Optional[int] = None) -> np.ndarray:
@@ -76,19 +76,26 @@ class VideoSymbolPipeline:
                    batch_index: int = 0) -> np.ndarray:
         """Encode one uint8 ``[N, H, W, C]`` frame batch (any resolution)."""
         frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        target = tuple(self.cfg.input_hw)
-        if self.resize_on == "host" and tuple(frames.shape[1:3]) != target:
-            frames = resize_bilinear(frames.float(), target, antialias=False) \
-                .round().clamp(0, 255).to(torch.uint8)
+        target = self._sd_hw if self.percep is not None \
+            else tuple(self.cfg.input_hw)
+        if (self.percep is not None or self.resize_on == "host") \
+                and tuple(frames.shape[1:3]) != target:
+            frames = resize_u8(frames, target)
         generator = None
         if self.noise:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(batch_seed(self.seed, batch_index))
         with torch.inference_mode():
-            x = resize_bilinear(to_float01(frames.to(self.device)), target)
+            if self.percep is not None:
+                x = torch.from_numpy(self.percep.encode_frames(
+                    frames.numpy())).to(self.device)
+            else:
+                x = resize_bilinear(to_float01(frames.to(self.device)),
+                                    target)
             z = self.model.encode(x[:, None], self.temperature, self.hard,
                                   self.noise_ratio,
                                   deterministic=not self.noise,
                                   generator=generator)
             z = z[:, 0].to(torch.uint8 if self.hard else torch.float32)
         return z.cpu().numpy()
+

@@ -23,3 +23,25 @@ def seeded_jax_params(jcfg, seed: int = 0):
         return rng.uniform(-b, b, leaf.shape).astype(np.float32)
 
     return jax.tree_util.tree_map(draw, shapes)
+
+
+def seeded_ae_params(jcfg, seed: int = 0):
+    """``svtpu`` AutoencoderKL params drawn from a numpy seed: conv kernels
+    U(±1/sqrt(fan_in)), biases U(±0.1), GroupNorm scales 1 + U(±0.1), in
+    the tree ``init`` would build. Only the tree's shapes are traced."""
+    from svtpu.models.autoencoder_kl import AutoencoderKL
+
+    x0 = jnp.zeros((1, 16, 16, jcfg.in_channels), jnp.float32)
+    shapes = jax.eval_shape(lambda k: AutoencoderKL(jcfg).init(
+        {"params": k}, x0), jax.random.key(0))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            b = 1 / np.sqrt(np.prod(leaf.shape[:-1]))
+            return rng.uniform(-b, b, leaf.shape).astype(np.float32)
+        base = 1.0 if name == "scale" else 0.0
+        return (base + rng.uniform(-0.1, 0.1, leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)

@@ -1,0 +1,104 @@
+"""Parity: the port's attention (the plain version the wrapper takes on the
+CPU, and its backward) vs svtpu's ``blocked_attention``, ``flash_attention``
+in interpret mode and ``jax.grad`` of ``attention(use_pallas=False)``."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from svtpu.ops import attention as jax_attn
+from svtpu_torch.ops.attention import (attention, blocked_attention,
+                                       flash_attention)
+
+
+def _qkv(B, N, D, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, N, D)).astype(dtype) for _ in range(3)]
+
+
+def _bf16(arrays):
+    """Round f32 arrays to bf16 once, as both packages' inputs."""
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    j = [jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in t]
+    return t, j
+
+
+@pytest.mark.parametrize("N, chunk", [(100, 32), (100, 1024), (256, 64)])
+def test_blocked_matches_jax_blocked_f32(N, chunk):
+    """Ragged and whole query chunks; f32 at 1e-4 / 1e-5."""
+    q, k, v = _qkv(2, N, 32, seed=N + chunk)
+    ref = jax_attn.blocked_attention(*map(jnp.asarray, (q, k, v)),
+                                     chunk=chunk)
+    got = blocked_attention(*map(torch.from_numpy, (q, k, v)), chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_wrapper_matches_jax_flash_interpret_f32():
+    """On a CPU tensor ``flash_attention`` takes the plain version; it
+    computes what the Pallas kernel computes (interpret mode)."""
+    q, k, v = _qkv(2, 256, 128, seed=2)
+    ref = jax_attn.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                   block_q=128, block_k=128, interpret=True)
+    before = flash_attention.launches
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)))
+    assert flash_attention.launches == before     # no kernel on the CPU
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_wrapper_matches_jax_flash_interpret_bf16():
+    """bf16 in and out: within one bf16 step at the output's scale (the
+    Pallas kernel rounds p to bf16 before p·v; the plain version does
+    not)."""
+    t, j = _bf16(_qkv(1, 1024, 64, seed=3))
+    ref = np.asarray(jax_attn.flash_attention(*j, interpret=True)
+                     .astype(jnp.float32))
+    got = flash_attention(*t)
+    assert got.dtype == torch.bfloat16
+    step = 2.0 ** -7 * np.abs(ref).max()
+    assert np.abs(got.float().numpy() - ref).max() <= step
+
+
+def test_ragged_n_matches_jax():
+    """A length no block divides: svtpu routes it to its blocked version,
+    the port's wrapper computes the same function."""
+    q, k, v = _qkv(2, 100, 64, seed=4)
+    ref = jax_attn.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                   interpret=True)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("N", [96, 1100])
+def test_backward_matches_jax_grad(N):
+    """The chunked-recompute backward (one chunk, and two with a ragged
+    last one) against ``jax.grad`` through svtpu's custom VJP."""
+    q, k, v = _qkv(1, N, 32, seed=5)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_attn.attention(q, k, v, use_pallas=False) ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (attention(*t) ** 2).sum().backward()
+    for name, a, b in zip("qkv", t, ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-5, err_msg=f"d{name}")
+
+
+def test_wrapper_checks_shapes():
+    x = torch.zeros(1, 8, 64)
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 8, 48), torch.zeros(1, 8, 48),
+                        torch.zeros(1, 8, 48))           # D not 32·n
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 8, 544), torch.zeros(1, 8, 544),
+                        torch.zeros(1, 8, 544))          # D over 512
+    with pytest.raises(ValueError):
+        flash_attention(x, torch.zeros(1, 9, 64), x)
+    with pytest.raises(TypeError):
+        flash_attention(x.half(), x.half(), x.half())

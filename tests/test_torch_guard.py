@@ -6,10 +6,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from svtpu_torch.config import rbvae_variant
+from svtpu_torch.config import PerceptualConfig, rbvae_variant
+from svtpu_torch.models.autoencoder_kl import AutoencoderKL
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+from svtpu_torch.ops.attention import flash_attention
 from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
 from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+from svtpu_torch.perceptual.embed import PerceptualEncoder
 from svtpu_torch.pipeline import VideoSymbolPipeline
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -36,7 +39,13 @@ def _imported_roots(path: Path):
 
 def test_port_imports_no_jax_and_nothing_of_svtpu():
     files = _port_files()
-    assert len(files) > 10 and all(f.exists() for f in files)
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"svtpu_torch/ops/attention.py",
+            "svtpu_torch/models/autoencoder_kl.py",
+            "svtpu_torch/perceptual/convert.py",
+            "svtpu_torch/perceptual/embed.py",
+            "svtpu_torch/perceptual/interpolate.py"} <= names
+    assert len(files) > 15 and all(f.exists() for f in files)
     bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
            for mod in _imported_roots(f) if mod in FORBIDDEN]
     assert bad == []
@@ -54,12 +63,26 @@ def test_no_card_and_no_device_raises(monkeypatch):
     Seq2SeqBinaryVAE(cfg, device="cpu")          # asked for: fine
 
 
+def test_perceptual_entry_points_need_a_card_or_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PerceptualConfig(ch=32, ch_mult=(1,), num_res_blocks=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AutoencoderKL(cfg)
+    sd = AutoencoderKL(cfg, device="cpu").state_dict()   # asked for: fine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PerceptualEncoder(sd, cfg)
+    enc = PerceptualEncoder(sd, cfg, device="cpu")
+    assert enc.model.quant_conv.weight.device.type == "cpu"
+
+
 def test_wrappers_refuse_devices_without_their_kernel():
     """Only a CPU tensor takes the plain version; any other device that is
     not CUDA raises instead of being quietly computed elsewhere."""
     meta = dict(device="meta")
     with pytest.raises(ValueError):
         binary_concrete_fused(torch.empty(4, 25, **meta), 1)
+    with pytest.raises(ValueError):
+        flash_attention(*(torch.empty(1, 64, 64, **meta) for _ in range(3)))
     with pytest.raises(ValueError):
         fused_conv01(torch.empty(1, 256, 256, 3, **meta),
                      torch.empty(64, 3, 3, 3, **meta),

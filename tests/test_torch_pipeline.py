@@ -9,7 +9,7 @@ from svtpu.pipeline import VideoSymbolPipeline as JaxPipeline
 from svtpu_torch.config import rbvae_variant
 from svtpu_torch.data.symbols import SymbolStore, pack_codes, unpack_codes
 from svtpu_torch.models.convert import from_jax_params
-from svtpu_torch.ops.image import resize_bilinear
+from svtpu_torch.ops.image import resize_u8
 from svtpu_torch.pipeline import VideoSymbolPipeline
 
 from _torch_port import seeded_jax_params
@@ -80,9 +80,7 @@ def test_host_resize_matches_cv2_inter_linear(models):
     th, tw = GEOM["input_hw"]
     ref = np.stack([cv2.resize(f, (tw, th), interpolation=cv2.INTER_LINEAR)
                     for f in frames])
-    got = resize_bilinear(torch.from_numpy(frames).float(), (th, tw),
-                          antialias=False).round().clamp(0, 255) \
-        .to(torch.uint8).numpy()
+    got = resize_u8(torch.from_numpy(frames), (th, tw)).numpy()
     diff = np.abs(got.astype(int) - ref.astype(int))
     assert diff.max() <= 1 and np.mean(diff == 0) > 0.8
     tcfg = rbvae_variant("contrastive", LATENT, **GEOM)

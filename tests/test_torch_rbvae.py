@@ -162,3 +162,32 @@ def test_flagship_archive_codes_bit_identical():
     assert tz.shape == jz.shape == (2, 1, 25)
     excluded = _codes_bit_identical(jz, tz, h / 0.2)
     assert excluded == 0
+
+
+def test_conv_final_relu_on_the_kernel_route():
+    """``conv_final_relu`` with the trunk kernel: the port ReLUs conv2's
+    output on the kernel route as svtpu's XLA route does
+    (``svtpu/models/rbvae.py:105-106``); svtpu's Pallas route skips it
+    (``:76-80``, ROADMAP.md §D) and is not the reference here. Logits at
+    1e-4 and codes bit for bit, on a geometry the kernel takes."""
+    jcfg = jax_variant("contrastive", LATENT, conv_final_relu=True)
+    params = seeded_jax_params(jcfg, seed=8)
+    x = np.random.default_rng(9).random((2, 1, 256, 256, 3), np.float32)
+    out = jax.jit(lambda p, xx: JaxRBVAE(jcfg).apply(
+        p, xx, 0.2, False, deterministic=True))(params, jnp.asarray(x))
+    jz, h = _jax_codes(JaxRBVAE(jcfg), params, x)
+    logits = {}
+    for relu in (True, False):
+        tcfg = rbvae_variant("contrastive", LATENT, pallas_trunk=True,
+                             conv_final_relu=relu)
+        tmodel = Seq2SeqBinaryVAE(tcfg, device="cpu")
+        tmodel.load_state_dict(from_jax_params(params, tcfg))
+        with torch.no_grad():
+            logits[relu] = tmodel.encoder_cnn(
+                torch.from_numpy(x[:, 0]), "kernel").numpy()
+            if relu:
+                tz = tmodel.encode(torch.from_numpy(x), 0.2, True).numpy()
+    ref = np.asarray(out.logits)[:, 0]
+    np.testing.assert_allclose(logits[True], ref, rtol=1e-4, atol=1e-4)
+    assert not np.allclose(logits[False], ref, rtol=1e-4, atol=1e-4)
+    assert _codes_bit_identical(jz, tz, h / 0.2) == 0
