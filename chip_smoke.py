@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``svtpu_torch/csrc`` (into ``build/``)
-and holds each against its plain PyTorch version. Then it drives two paths
+Builds the hand-written kernels from ``svtpu_torch/csrc`` (into ``build/``),
+prints each kernel's registers, spills and tensor-core instruction counts
+(HMMA for mma.sync, HGMMA for wgmma, from ``cuobjdump --dump-sass``), and
+holds each kernel against its plain PyTorch version, ``fused_conv01`` also
+at B = 1, 7 and 133 and ``flash_attention`` on every kernel its launcher
+dispatches to. Then it drives two paths
 through ``VideoSymbolPipeline.run_frames``, each with its kernels switched
 on and their launches counted:
 
@@ -28,6 +32,7 @@ without one.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,6 +57,14 @@ PERCEP_ATTN = (PERCEP_BATCH, 88 * 160, 512)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# The bf16 kernels meant for the tensor cores (substrings of their symbols).
+TENSOR_CORE_KERNELS = ("fused_conv01_tc", "flash_d512_kernel",
+                       "flash_bf16_kernel")
+# Each kernel's time before its redesign for Hopper (PERF.md §6, NVIDIA
+# H100 80GB HBM3, 700.00 W): constants, printed on a line of their own
+# beside this run's times and kept out of the kernels line.
+PREV_MS = {"fused_conv01": 10.507, "binary_concrete": 0.0302,
+           "flash_attention": 32.464}
 
 
 def card_line() -> str:
@@ -98,17 +111,76 @@ def phase_toolchain() -> str:
     return card
 
 
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes of each kernel from ``-Xptxas -v``."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {"registers": None, "spill_bytes": 0}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage[fn]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_counts(lib: Path) -> dict:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions of each kernel in a
+    built library, from ``cuobjdump --dump-sass``."""
+    from svtpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
+                    break
+    return counts
+
+
 def phase_build() -> None:
+    """Build every kernel; print each kernel's registers, spills and
+    tensor-core instruction counts. A bf16 tensor-core kernel with no HMMA
+    or HGMMA instruction, or with spills, fails the run."""
     from svtpu_torch.ops import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {sorted(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s (rebuilt: {sorted(logs)})")
+    usage = {}
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line and "0 bytes spill" not in line:
-                print(f"  {name}: {line.strip()}")
+        usage.update(ptxas_usage(log))
+    report = {}
+    for name in _build.SOURCES:
+        for fn, n in sass_counts(_build._target(name)).items():
+            use = usage.get(fn, {})
+            report[fn] = dict(n, **use)
+            print(f"  {name}: {fn}: registers {use.get('registers')}, spill "
+                  f"bytes {use.get('spill_bytes')}, SASS HMMA {n['HMMA']}, "
+                  f"HGMMA {n['HGMMA']}")
+    for key in TENSOR_CORE_KERNELS:
+        fns = [fn for fn in report if key in fn]
+        require(len(fns) == 1, f"no single built kernel named {key}")
+        r = report[fns[0]]
+        require(r["HMMA"] + r["HGMMA"] > 0,
+                f"{key}: no tensor-core instruction in its SASS")
+        require(r.get("spill_bytes", 0) == 0, f"{key}: ptxas spills")
 
 
 def trunk_inputs(B, seed):
@@ -139,20 +211,31 @@ def conv_error(B: int, dt, seed: int):
 
 
 def phase_conv_kernel() -> dict:
-    """fused_conv01 vs its plain version: at B=8 f32 held to 1e-3 with TF32
-    off and bf16 reported; at the main path's shape (B=512, bf16) held to
-    two bf16 steps at the output's scale, since the two sum conv0 in
-    another order and a conv0 value can round to a neighbouring bf16."""
+    """fused_conv01 vs its plain version: f32 held to 1e-3 with TF32 off;
+    bf16 held to two bf16 steps at the output's scale, since the two sum
+    conv0 in another order and a conv0 value can round to a neighbouring
+    bf16. At B=8 and at the main path's shape (B=512), and at B=1, 7 and
+    133: fewer work items than SMs, and a remainder for the persistent
+    grid of the bf16 kernel."""
     e32, _ = conv_error(8, torch.float32, 0)
-    e16, _ = conv_error(8, torch.bfloat16, 0)
+    e16, step16 = conv_error(8, torch.bfloat16, 0)
     emain, step = conv_error(BATCH, torch.bfloat16, 1)
     print(f"check fused_conv01 vs plain: B=8 f32 max_abs_err {e32:.3e} "
-          f"(limit 1e-3), B=8 bf16 max_abs_err {e16:.3e} (reported); "
-          f"B={BATCH} bf16 max_abs_err {emain:.3e} (limit {2 * step:.3e}, "
-          f"two bf16 steps at the output's scale)")
+          f"(limit 1e-3), B=8 bf16 max_abs_err {e16:.3e} (limit "
+          f"{2 * step16:.3e}); B={BATCH} bf16 max_abs_err {emain:.3e} (limit "
+          f"{2 * step:.3e}, two bf16 steps at the output's scale)")
     require(e32 < 1e-3, "fused_conv01 f32 disagrees")
+    require(e16 <= 2 * step16, "fused_conv01 bf16 at B=8 disagrees")
     require(emain <= 2 * step, "fused_conv01 bf16 at the main path's shape "
             "disagrees")
+    for B in (1, 7, 133):
+        f32, _ = conv_error(B, torch.float32, 100 + B)
+        bf16, step = conv_error(B, torch.bfloat16, 200 + B)
+        print(f"check fused_conv01 vs plain, B={B}: f32 max_abs_err "
+              f"{f32:.3e} (limit 1e-3), bf16 max_abs_err {bf16:.3e} (limit "
+              f"{2 * step:.3e})")
+        require(f32 < 1e-3, f"fused_conv01 f32 at B={B} disagrees")
+        require(bf16 <= 2 * step, f"fused_conv01 bf16 at B={B} disagrees")
     return {"max_abs_err": emain}
 
 
@@ -214,11 +297,16 @@ def attention_inputs(B, N, D, dt, seed, spread=1.0, dominant=False):
 def attention_error(B, N, D, dt, seed, **kw):
     """flash_attention against blocked_attention on the same inputs: the
     max abs error and one bf16 step at the output's largest magnitude."""
-    from svtpu_torch.ops.attention import blocked_attention, flash_attention
+    from svtpu_torch.ops.attention import (blocked_attention, flash_attention,
+                                           kernel_for)
 
     q, k, v = attention_inputs(B, N, D, dt, seed, **kw)
+    which = kernel_for(dt, D)
+    before = flash_attention.launches_by_kernel[which]
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
+    require(flash_attention.launches_by_kernel[which] == before + 1,
+            f"flash_attention [{B},{N},{D}] did not count a {which} launch")
     ref = blocked_attention(q, k, v)
     require(got.shape == ref.shape == (B, N, D) and got.dtype == dt,
             "flash_attention: shape or dtype")
@@ -233,7 +321,10 @@ def phase_attention_kernel() -> dict:
     1e-3 (TF32 off); bf16 held to two bf16 steps at the output's scale (p
     is rounded to bf16 in the kernel and not in the plain version). Scores
     spread wide (std 8) and one case with a dominant key per row, so that a
-    wrong running-max rescale shows."""
+    wrong running-max rescale shows. The bf16 cases at D = 512 run the
+    D = 512 kernel, those at D = 64 and 96 the first bf16 kernel."""
+    from svtpu_torch.ops.attention import kernel_for
+
     B, N, D = PERCEP_ATTN
     f32 = {"[2,300,64] f32 spread 8": (2, 300, 64, torch.float32, 10,
                                        dict(spread=8.0)),
@@ -246,6 +337,9 @@ def phase_attention_kernel() -> dict:
             "[2,1000,64] bf16 spread 8 (ragged)": (2, 1000, 64,
                                                    torch.bfloat16, 14,
                                                    dict(spread=8.0)),
+            "[2,1000,512] bf16 spread 8 (ragged)": (2, 1000, 512,
+                                                    torch.bfloat16, 18,
+                                                    dict(spread=8.0)),
             "[2,2048,512] bf16 dominant key": (2, 2048, 512, torch.bfloat16,
                                                15, dict(dominant=True)),
             "[1,4000,96] bf16 dominant key (ragged)": (
@@ -259,9 +353,9 @@ def phase_attention_kernel() -> dict:
     for name, (b, n, d, dt, seed, kw) in bf16.items():
         err, step = attention_error(b, n, d, dt, seed, **kw)
         out[name] = err
-        print(f"check flash_attention vs plain, {name}: max_abs_err "
-              f"{err:.3e} (limit {2 * step:.3e}, two bf16 steps at the "
-              f"output's scale)")
+        print(f"check flash_attention vs plain, {name}, kernel "
+              f"{kernel_for(dt, d)}: max_abs_err {err:.3e} (limit "
+              f"{2 * step:.3e}, two bf16 steps at the output's scale)")
         require(err <= 2 * step, f"flash_attention {name} disagrees")
     return {"max_abs_err": out[f"[{B},{N},{D}] bf16 spread 8"]}
 
@@ -356,7 +450,7 @@ def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
     """Where one batch's time goes: each stage of run_frames alone, on the
     input the main path gives it, timed with CUDA events."""
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
-    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01, kernel_weights
     from svtpu_torch.ops.image import resize_bilinear, to_float01
 
     m, dt = pipe.model, pipe.cfg.torch_dtype
@@ -376,8 +470,12 @@ def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
             "to_float01 + resize 432x768 -> 256x256":
                 lambda: resize_bilinear(to_float01(u8_dev), (256, 256)),
             "cast frames to bf16": lambda: xd[:, 0].to(dt),
-            "fused_conv01 kernel": lambda: fused_conv01(
-                xb, c0.weight, c0.bias, c1.weight, c1.bias),
+            "fused_conv01 kernel (its wrapper, packing included)":
+                lambda: fused_conv01(xb, c0.weight, c0.bias, c1.weight,
+                                     c1.bias),
+            "  of which packing the weights (kernel_weights)":
+                lambda: kernel_weights(dt, c0.weight, c0.bias, c1.weight,
+                                       c1.bias),
             "conv2 (cuDNN)": lambda: c2(h01.permute(0, 3, 1, 2), dt),
             "fc 65536 -> 25": lambda: enc.fc(h2.reshape(BATCH, -1), dt),
             "encoder LSTM, 2 layers": lambda: m.encoder_rnn(logits),
@@ -475,6 +573,9 @@ def phase_percep_path(card: str) -> dict:
     counters = (flash_attention, binary_concrete_fused, fused_conv01)
     for fn in counters:
         fn.launches = 0
+    by_kernel = flash_attention.launches_by_kernel
+    for name in by_kernel:
+        by_kernel[name] = 0
     torch.cuda.reset_peak_memory_stats()
     codes = pipe.run_frames(frames, 0)
     z = pipe.percep.encode_frames(frames[:2, :704])
@@ -486,10 +587,13 @@ def phase_percep_path(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"percep path: run_frames x1 ({PERCEP_FRAMES} frames 720x1280, SD "
           f"batch {PERCEP_BATCH}, noise on) + encode_frames x1 (2 frames) + "
-          f"decode_latents x1 (2 latents); launches {launches}; peak device "
+          f"decode_latents x1 (2 latents); launches {launches}, "
+          f"flash_attention by kernel {dict(by_kernel)}; peak device "
           f"memory {peak:.2f} GiB")
     for name in ("flash_attention", "binary_concrete"):
         require(launches[name] > 0, f"percep path never launched {name}")
+    require(by_kernel["bf16_d512"] == launches["flash_attention"],
+            "percep path: attention not on the D = 512 kernel")
     require(codes.shape == (PERCEP_FRAMES, LATENT) and codes.dtype == np.uint8
             and set(np.unique(codes)) <= {0, 1}, "percep noisy codes")
     print(f"percep path: codes: share of ones {codes.mean():.3f}, bits that "
@@ -686,10 +790,13 @@ def phase_kernel_times(card: str, main: dict, errs: dict,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
     print(f"time: fused_conv01 bf16 B={BATCH}: kernel {ms:.3f} ms (spread "
-          f"{sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} "
-          f"ms, cuDNN conv x2 {lib_ms:.3f} ms, bound {max(bound.values()):.3f}"
-          f" ms ({max(bound, key=bound.get)}), launches per encode "
-          f"{main['per_encode']['fused_conv01']:.0f} [{card}]")
+          f"{sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{max(bound.values()) / ms:.1%} of bound), plain {plain_ms:.3f} "
+          f"ms, cuDNN conv x2 {lib_ms:.3f} ms (kernel "
+          f"{'faster' if ms < lib_ms else 'SLOWER'}), bound "
+          f"{max(bound.values()):.3f} ms ({max(bound, key=bound.get)}), "
+          f"launches per encode {main['per_encode']['fused_conv01']:.0f} "
+          f"[{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
@@ -742,9 +849,11 @@ def phase_kernel_times(card: str, main: dict, errs: dict,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
     print(f"time: flash_attention bf16 [{B},{N},{D}]: kernel {ms:.3f} ms "
-          f"(spread {sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"(spread {sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{max(bound.values()) / ms:.1%} of bound), plain "
           f"{plain_ms:.3f} ms, scaled_dot_product_attention ({backend}) "
-          f"{lib_ms:.3f} ms, bound {max(bound.values()):.3f} ms "
+          f"{lib_ms:.3f} ms (kernel {'faster' if ms < lib_ms else 'SLOWER'})"
+          f", bound {max(bound.values()):.3f} ms "
           f"({max(bound, key=bound.get)}: {flops / 1e12:.3f} TFLOP), "
           f"launches on the percep path "
           f"{percep['launches']['flash_attention']} [{card}]")
@@ -767,6 +876,12 @@ def main() -> None:
     main_path = phase_main_path(card)
     percep = phase_percep_path(card)
     rows = phase_kernel_times(card, main_path, errs, percep)
+    for row in rows:
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    print("before the redesign (constants from PERF.md §6, not measured "
+          "here): " + ", ".join(
+              f"{r['name']} {PREV_MS[r['name']]} ms, now {r['ms']:.4f} ms"
+              for r in rows))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

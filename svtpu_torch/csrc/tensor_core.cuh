@@ -1,0 +1,204 @@
+// Helpers shared by the bf16 tensor-core kernels (sm_90a): cp.async
+// copies into shared memory, ldmatrix fragment loads and the mma.sync
+// m16n8k16 bf16 product (fused_conv01); wgmma products, TMA loads and
+// mbarriers (flash_attention).
+//
+// Fragment layouts are those of mma.m16n8k16 (PTX ISA), lane = 4 g + t:
+// A (16x16, row-major) holds rows g, g+8 and columns 2t, 2t+1, 2t+8, 2t+9
+// as {a0: row g, cols 2t..; a1: row g+8, cols 2t..; a2: row g, cols 2t+8..;
+// a3: row g+8, cols 2t+8..}; B (16x8, column-major) holds k rows 2t, 2t+1
+// (b0) and 2t+8, 2t+9 (b1) of column g; C holds rows g (c0, c1) and g+8
+// (c2, c3) at columns 2t, 2t+1. Each 32-bit register packs two bf16, the
+// lower column in the low half.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace svt {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; when `valid` is
+// false nothing is read and the 16 bytes are zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8,
+// row l % 8, and receives r[i] of matrix i at row l / 4, cols 2 (l % 4)..
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16x8, f32) += a (16x16, bf16) * b (16x8, bf16).
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats rounded to bf16 (round to nearest even), `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two raw bf16 values, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// ------------------------------------------------------------------ wgmma
+//
+// A warpgroup (4 consecutive warps, 128 threads) multiplies a 64-row tile.
+// Its f32 accumulator m64nN is laid out as N/8 mma.m16n8 C fragments per
+// warp: warp w of the group holds rows 16 w .. 16 w + 15, d[4 j + e] at
+// row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2. An A operand in
+// registers (m64k16 bf16) is one mma.m16n8k16 A fragment per warp, rows
+// 16 w .. 16 w + 15. So a score accumulator, rounded to bf16 and packed
+// in pairs, is the A operand of the next product as it stands.
+//
+// Shared-memory operands use the 128-byte swizzle: a panel of rows of 64
+// bf16 (128 bytes), row r's 16-byte chunk c stored at chunk c ^ (r % 8),
+// 8-row groups 1,024 bytes apart, panels 1,024-byte aligned.
+
+// Matrix descriptor of a 128-byte-swizzled operand at `p`: `lbo` and
+// `sbo` are the leading and stride byte offsets.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous product's commit and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// ------------------------------------------------------- TMA and mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Barrier inits visible to the async proxy (TMA) before first use.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA copies on `bar`.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-D tensor map into shared memory at `dst`, completing
+// its bytes on `bar`; coordinates innermost first.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+#define SVT_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define SVT_F16(i) SVT_F4(i), SVT_F4(i + 4), SVT_F4(i + 8), SVT_F4(i + 12)
+
+// d (m64n64, f32) += a (m64k16, K-major in shared memory) * b (k16n64,
+// K-major in shared memory).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SVT_F16(0), SVT_F16(16)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64n256, f32) += a (m64k16, bf16 in registers) * b (k16n256,
+// MN-major in shared memory: the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float* d,
+                                                       const uint32_t* a,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : SVT_F16(0), SVT_F16(16), SVT_F16(32), SVT_F16(48), SVT_F16(64),
+        SVT_F16(80), SVT_F16(96), SVT_F16(112)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef SVT_F16
+#undef SVT_F4
+
+}  // namespace svt

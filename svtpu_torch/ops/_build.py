@@ -3,8 +3,9 @@
 Each ``svtpu_torch/csrc/<name>.cu`` has a plain C interface and is compiled
 on its own by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` into ``build/svtpu_torch/lib<name>-<hash>.so`` at the repo
-root (``build/`` is git-ignored); the hash of the source names the library,
-so an edited source is rebuilt and a built one is reused. Nothing here runs
+root (``build/`` is git-ignored); the hash of the source and of the shared
+headers (``csrc/*.cuh``) names the library, so an edited source or header
+is rebuilt and a built one is reused. Nothing here runs
 at import: the CPU tests import every module, and there is no ``nvcc`` there.
 
 Every exported launcher returns ``cudaGetLastError()`` after its launch;
@@ -44,8 +45,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library's path, named by the hash of its source and of every
+    shared header in ``csrc/``, so that editing a header rebuilds too."""
+    h = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path) -> list[str]:

@@ -14,7 +14,8 @@ output ``acc / l`` cast once to the input dtype.
 
 ``flash_attention`` takes the plain version (``blocked_attention``) for a
 CPU tensor and the kernel for a CUDA tensor; it counts its kernel launches
-in ``flash_attention.launches``. ``attention`` is a
+in ``flash_attention.launches``, and by kernel (``kernel_for``) in
+``flash_attention.launches_by_kernel``. ``attention`` is a
 ``torch.autograd.Function`` whose backward is the query-chunked recompute
 of ``_attention_bwd_chunked`` (``attention.py:157-206``), as torch ops.
 """
@@ -27,7 +28,9 @@ import torch
 
 from svtpu_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# The kernels of csrc/flash_attention.cu, by the launcher's index.
+KERNELS = {"f32": 0, "bf16": 1, "bf16_d512": 2}
 MAX_D = 512
 
 
@@ -80,6 +83,16 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v must lie on one device")
 
 
+def kernel_for(dtype: torch.dtype, D: int) -> str:
+    """The kernel of ``csrc/flash_attention.cu`` that runs these inputs:
+    ``bf16_d512``, the wgmma kernel for the SD model's width; ``bf16``, the
+    first tensor-core kernel, for every other D; ``f32``, the CUDA-core
+    kernel. The wrapper passes the choice to the launcher."""
+    if dtype == torch.float32:
+        return "f32"
+    return "bf16_d512" if D == 512 else "bf16"
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, on a 16-byte boundary (the kernel's vector loads)."""
     t = t.contiguous()
@@ -109,16 +122,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    kernel = kernel_for(q.dtype, D)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, N, D, _DTYPES[q.dtype], 1.0 / math.sqrt(D),
+                 B, N, D, KERNELS[kernel], 1.0 / math.sqrt(D),
                  _build.stream_handle(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[kernel] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 class Attention(torch.autograd.Function):

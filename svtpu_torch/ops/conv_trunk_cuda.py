@@ -13,6 +13,9 @@ Inference only: no gradient.
 
 ``fused_conv01`` takes the plain version for a CPU tensor and the kernel for
 a CUDA tensor; it counts its kernel launches in ``fused_conv01.launches``.
+bf16 runs the tensor-core kernel, which reads the weights in the GEMM
+layouts of ``pack_w0`` and ``pack_w1``; f32 runs the CUDA-core kernel on
+HWIO weights.
 """
 from __future__ import annotations
 
@@ -43,6 +46,60 @@ def fused_conv01_plain(x, w0, b0, w1, b1) -> torch.Tensor:
     return h.permute(0, 2, 3, 1).contiguous()
 
 
+def pack_w0(w0: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """conv0's weights ``[64, 3, 3, 3]`` (OIHW) as the tensor-core kernel
+    reads them: ``[64, 32]``, row ``co`` holding ``k = (ky * 3 + kx) * 3 +
+    ci`` for ``k < 27`` and zeros up to the GEMM depth of 32."""
+    w = w0.to(dtype).permute(0, 2, 3, 1).reshape(64, 27)
+    return F.pad(w, (0, 32 - 27)).contiguous()
+
+
+def unpack_w0(packed: torch.Tensor) -> torch.Tensor:
+    """``pack_w0``'s inverse: back to ``[64, 3, 3, 3]`` OIHW."""
+    return packed[:, :27].reshape(64, 3, 3, 3).permute(0, 3, 1, 2)
+
+
+def _w1_chunks(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row ``co`` and the stored position of logical 16-byte chunk ``c``
+    (8 bf16 values) of that row: ``c ^ (co % 8)``."""
+    co = torch.arange(64, device=device)[:, None]
+    c = torch.arange(72, device=device)[None, :]
+    return co, c ^ (co % 8)
+
+
+def pack_w1(w1: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """conv1's weights ``[64, 64, 3, 3]`` (OIHW) as the tensor-core kernel
+    keeps them in shared memory: ``[64, 576]``, row ``co`` holding the GEMM
+    depth ``k = (ky * 3 + kx) * 64 + ci`` in chunks of 8 values, chunk ``c``
+    stored at ``c ^ (co % 8)`` so that ldmatrix's 8 rows hit 8 bank
+    groups."""
+    w = w1.to(dtype).permute(0, 2, 3, 1).reshape(64, 72, 8)
+    co, pos = _w1_chunks(w.device)
+    out = torch.empty_like(w)
+    out[co, pos] = w
+    return out.reshape(64, 576)
+
+
+def unpack_w1(packed: torch.Tensor) -> torch.Tensor:
+    """``pack_w1``'s inverse: back to ``[64, 64, 3, 3]`` OIHW."""
+    co, pos = _w1_chunks(packed.device)
+    w = packed.reshape(64, 72, 8)[co, pos]
+    return w.reshape(64, 3, 3, 64).permute(0, 3, 1, 2)
+
+
+def kernel_weights(dt, w0, b0, w1, b1) -> tuple:
+    """``(w0, b0, w1, b1)`` as the kernel for ``dt`` reads them: bf16 in
+    the tensor-core GEMM layouts (``pack_w0``, ``pack_w1``), f32 in HWIO
+    (each (tap, input channel) row holds the 64 output channels); ``b1``
+    in f32. The wrapper packs on every call."""
+    if dt == torch.bfloat16:
+        w0k, w1k = pack_w0(w0), pack_w1(w1)
+    else:
+        w0k = w0.to(dt).permute(2, 3, 1, 0).contiguous()
+        w1k = w1.to(dt).permute(2, 3, 1, 0).contiguous()
+    return w0k, b0.to(dt).contiguous(), w1k, b1.float().contiguous()
+
+
 def _check(x, params: dict) -> None:
     if x.dim() != 4 or tuple(x.shape[1:]) != (256, 256, 3):
         raise ValueError(f"x must be [B, 256, 256, 3], got {tuple(x.shape)}")
@@ -69,13 +126,10 @@ def fused_conv01(x, w0, b0, w1, b1) -> torch.Tensor:
         raise ValueError(f"unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC")
+    if x.data_ptr() % 16:
+        x = x.clone()             # the kernels copy 16-byte pieces
     dt = x.dtype
-    # HWIO in the compute dtype: each (tap, input channel) row holds the 64
-    # output channels contiguously, as the kernel reads them.
-    w0k = w0.to(dt).permute(2, 3, 1, 0).contiguous()
-    w1k = w1.to(dt).permute(2, 3, 1, 0).contiguous()
-    b0k = b0.to(dt).contiguous()
-    b1k = b1.float().contiguous()
+    w0k, b0k, w1k, b1k = kernel_weights(dt, w0, b0, w1, b1)
     B = x.shape[0]
     out = torch.empty((B, 64, 64, 64), dtype=dt, device=x.device)
     if B == 0:

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 
 from svtpu.ops import attention as jax_attn
 from svtpu_torch.ops.attention import (attention, blocked_attention,
-                                       flash_attention)
+                                       flash_attention, kernel_for)
 
 
 def _qkv(B, N, D, seed, dtype=np.float32):
@@ -88,6 +88,32 @@ def test_backward_matches_jax_grad(N):
     for name, a, b in zip("qkv", t, ref):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), rtol=1e-4,
                                    atol=1e-5, err_msg=f"d{name}")
+
+
+def test_kernel_dispatch_on_dtype_and_width():
+    """The launcher's dispatch: the D = 512 tensor-core kernel serves the
+    SD model's width, the first bf16 kernel every other width."""
+    assert kernel_for(torch.bfloat16, 512) == "bf16_d512"
+    for D in (32, 64, 96, 256, 480):
+        assert kernel_for(torch.bfloat16, D) == "bf16"
+    for D in (64, 512):
+        assert kernel_for(torch.float32, D) == "f32"
+    assert set(flash_attention.launches_by_kernel) == {"bf16_d512", "bf16",
+                                                      "f32"}
+
+
+def test_wrapper_at_the_sd_width_matches_jax_flash_interpret_bf16():
+    """D = 512, the width the D = 512 kernel serves, bf16: the plain
+    version against the Pallas kernel within one bf16 step; no launch is
+    counted on the CPU."""
+    t, j = _bf16(_qkv(1, 256, 512, seed=6))
+    ref = np.asarray(jax_attn.flash_attention(
+        *j, block_q=128, block_k=128, interpret=True).astype(jnp.float32))
+    before = dict(flash_attention.launches_by_kernel)
+    got = flash_attention(*t)
+    assert flash_attention.launches_by_kernel == before
+    step = 2.0 ** -7 * np.abs(ref).max()
+    assert np.abs(got.float().numpy() - ref).max() <= step
 
 
 def test_wrapper_checks_shapes():

@@ -4,6 +4,7 @@ the CPU (interpret mode)."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +57,65 @@ def test_fused_conv01_plain_bf16_rounds_like_pallas():
     step = 2.0 ** -7 * float(np.abs(ref).max())
     np.testing.assert_allclose(got, ref, atol=2 * step, rtol=0)
     assert np.mean(got == ref) > 0.99
+
+
+def _gemm_conv_s2(h, wm, cin, depth):
+    """k3/s2/p1 conv as the kernels' implicit GEMM: im2col rows of depth
+    ``k = (ky * 3 + kx) * cin + ci`` (zero-padded to ``depth``) times the
+    ``[cout, depth]`` weight matrix ``wm``; NCHW in and out."""
+    B, _, H, W = h.shape
+    hp = F.pad(h, (1, 1, 1, 1))
+    taps = [hp[:, :, ky:ky + H:2, kx:kx + W:2]
+            for ky in range(3) for kx in range(3)]
+    a = torch.stack(taps, 1).permute(0, 3, 4, 1, 2).reshape(
+        B, H // 2, W // 2, 9 * cin)
+    a = F.pad(a, (0, depth - 9 * cin))
+    return (a @ wm.t()).permute(0, 3, 1, 2)
+
+
+def _read_packed_w1(packed):
+    """The ``[64, 576]`` weight matrix as the kernel reads the packed
+    layout: logical chunk ``k // 8`` of row ``co`` at ``(k // 8) ^ (co % 8)``."""
+    co = torch.arange(64)[:, None]
+    k = torch.arange(576)[None, :]
+    return packed[co, ((k // 8) ^ (co % 8)) * 8 + k % 8]
+
+
+@pytest.mark.parametrize("which", ["w0", "w1"])
+def test_packed_weights_as_implicit_gemm_equal_conv2d(which):
+    """The kernels' GEMMs on the packed weights, emulated in f32, are the
+    convolutions."""
+    rng = np.random.default_rng(8)
+    cin = 3 if which == "w0" else 64
+    # The trunk's weight scale (conv outputs of order 1).
+    w = torch.from_numpy((rng.normal(size=(64, cin, 3, 3)) * 0.05)
+                         .astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(2, cin, 16, 16)).astype(np.float32))
+    if which == "w0":
+        wm, depth = conv_trunk_cuda.pack_w0(w, torch.float32), 32
+        assert wm.shape == (64, 32) and not wm[:, 27:].any()
+    else:
+        wm = _read_packed_w1(conv_trunk_cuda.pack_w1(w, torch.float32))
+        depth = 576
+    got = _gemm_conv_s2(h, wm, cin, depth)
+    ref = F.conv2d(h, w, None, 2, 1)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+
+
+def test_weight_packing_round_trips_exactly():
+    rng = np.random.default_rng(9)
+    w0 = torch.from_numpy(rng.normal(size=(64, 3, 3, 3)).astype(np.float32))
+    w1 = torch.from_numpy(rng.normal(size=(64, 64, 3, 3)).astype(np.float32))
+    p0, p1 = conv_trunk_cuda.pack_w0(w0), conv_trunk_cuda.pack_w1(w1)
+    assert p0.dtype == p1.dtype == torch.bfloat16
+    assert p0.shape == (64, 32) and p1.shape == (64, 576)
+    assert p0.is_contiguous() and p1.is_contiguous()
+    assert torch.equal(conv_trunk_cuda.unpack_w0(p0), w0.to(torch.bfloat16))
+    assert torch.equal(conv_trunk_cuda.unpack_w1(p1), w1.to(torch.bfloat16))
+    # The swizzle moves chunks: row 1's first 8 values are logical chunk 1.
+    ref = w1.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(64, 576)
+    assert torch.equal(p1[0], ref[0])
+    assert torch.equal(p1[1, :8], ref[1, 8:16])
 
 
 def test_fused_conv01_rejects_other_geometry():
@@ -116,3 +176,46 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     binarize_cuda.binary_concrete_fused(torch.zeros(8, 25), 3)
     assert (conv_trunk_cuda.fused_conv01.launches,
             binarize_cuda.binary_concrete_fused.launches) == before == (0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_weights_layouts(dtype):
+    """bf16: the tensor-core kernel's packed GEMM layouts; f32: HWIO. Both
+    contiguous, b0 in the input dtype and b1 in f32."""
+    _, w0, b0, w1, b1 = _torch_trunk_args(*_trunk_inputs(10))
+    w0k, b0k, w1k, b1k = conv_trunk_cuda.kernel_weights(dtype, w0, b0, w1, b1)
+    if dtype == torch.bfloat16:
+        assert torch.equal(w0k, conv_trunk_cuda.pack_w0(w0))
+        assert torch.equal(w1k, conv_trunk_cuda.pack_w1(w1))
+    else:
+        assert torch.equal(w0k, w0.permute(2, 3, 1, 0))
+        assert torch.equal(w1k, w1.permute(2, 3, 1, 0))
+    assert all(t.is_contiguous() for t in (w0k, b0k, w1k, b1k))
+    assert b0k.dtype == dtype and b1k.dtype == torch.float32
+    assert torch.equal(b1k, b1)
+
+
+def test_kernel_weights_follow_an_in_place_update():
+    _, w0, b0, w1, b1 = _torch_trunk_args(*_trunk_inputs(11))
+    first = conv_trunk_cuda.kernel_weights(torch.bfloat16, w0, b0, w1, b1)
+    w1.mul_(2.0)
+    updated = conv_trunk_cuda.kernel_weights(torch.bfloat16, w0, b0, w1, b1)
+    assert torch.equal(updated[2], conv_trunk_cuda.pack_w1(w1))
+    assert not torch.equal(updated[2], first[2])
+
+
+def test_packed_w1_rows_of_one_ldmatrix_hit_eight_bank_groups():
+    """ldmatrix reads one 16-byte chunk from each of 8 consecutive rows:
+    the swizzle stores each logical chunk of those rows at 8 distinct
+    positions modulo 8, so the 8 reads fall in 8 bank groups."""
+    w1 = torch.arange(64 * 576, dtype=torch.float32).reshape(64, 3, 3, 64) \
+        .permute(0, 3, 1, 2)
+    logical = w1.permute(0, 2, 3, 1).reshape(64, 72, 8)[:, :, 0]
+    stored = conv_trunk_cuda.pack_w1(w1, torch.float32).reshape(64, 72, 8)
+    where = torch.empty(64, 72, dtype=torch.long)
+    for co in range(64):
+        pos = {int(v): i for i, v in enumerate(stored[co, :, 0])}
+        where[co] = torch.tensor([pos[int(v)] for v in logical[co]])
+    for g in range(8):
+        rows = where[8 * g:8 * g + 8] % 8
+        assert all(len(set(rows[:, c].tolist())) == 8 for c in range(72))
