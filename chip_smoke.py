@@ -7,19 +7,29 @@ Builds the hand-written kernels from ``svtpu_torch/csrc`` (into ``build/``),
 prints each kernel's registers, spills and tensor-core instruction counts
 (HMMA for mma.sync, HGMMA for wgmma, from ``cuobjdump --dump-sass``), and
 holds each kernel against its plain PyTorch version, ``fused_conv01`` also
-at B = 1, 7 and 133 and ``flash_attention`` on every kernel its launcher
-dispatches to. Then it drives two paths
+at B = 1, 7 and 133, ``flash_attention`` on every kernel its launcher
+dispatches to and ``lstm_binary_concrete`` at every shape a path gives it
+and a few ragged ones. Then it drives three paths
 through ``VideoSymbolPipeline.run_frames``, each with its kernels switched
 on and their launches counted:
 
   * the pixel path: the committed contrastive RBVAE
     (``results/p_hardened_params.npz``, latent 25, bf16, 256x256 RGB,
-    batch 512) through ``fused_conv01`` and ``binary_concrete``;
+    batch 512) through ``fused_conv01`` and ``lstm_binary_concrete`` (the
+    encoder LSTM with the sampler fused in); its noisy ``model.encode`` runs
+    once under ``torch.cuda.set_sync_debug_mode("error")``;
+  * the simple variant (seeded weights, latent 25, bf16, 64x64, batch
+    512), which binarizes before its LSTM, through the standalone
+    ``binary_concrete``;
+  * a wide latent: the contrastive RBVAE at latent 75 (a width the sweeps
+    search; seeded weights, f32, 256x256, batch 64), whose LSTM the fused
+    kernel does not take, through ``fused_conv01``, the plain LSTM and the
+    standalone ``binary_concrete``;
   * the perceptual path: the SD first stage at its published widths
     (``PerceptualConfig()``, bf16, seeded random weights) in
     ``PerceptualEncoder`` batches of 8 through ``flash_attention``, then the
-    ``percep-flagship`` RBVAE (latent 25, LSTM residual) through
-    ``binary_concrete``, on 16 seeded 720x1280 frames; and one
+    ``percep-flagship`` RBVAE (latent 25, 4-layer residual LSTM) through
+    ``lstm_binary_concrete``, on 16 seeded 720x1280 frames; and one
     ``decode_latents`` (the decoder's attention).
 
 Each path's deterministic codes are held against its plain path's, and the
@@ -62,9 +72,21 @@ TENSOR_CORE_KERNELS = ("fused_conv01_tc", "flash_d512_kernel",
                        "flash_bf16_kernel")
 # Each kernel's time before its redesign for Hopper (PERF.md §6, NVIDIA
 # H100 80GB HBM3, 700.00 W): constants, printed on a line of their own
-# beside this run's times and kept out of the kernels line.
-PREV_MS = {"fused_conv01": 10.507, "binary_concrete": 0.0302,
+# beside this run's times and kept out of the kernels line. For
+# lstm_binary_concrete, the two stages it replaces on the pixel path: the
+# plain 2-layer encoder LSTM and the standalone binary_concrete kernel.
+PREV_MS = {"fused_conv01": 10.507, "binary_concrete": 0.0287,
+           "lstm_binary_concrete": 0.5085 + 0.0377,
            "flash_attention": 32.464}
+# lstm_binary_concrete's checks: (B, T, H, layers, residual); the pixel
+# and percep paths' shapes first, then ragged T and batch, H = 32, and
+# widths with two hidden units per lane: H = 50 (the benchmarks' latent;
+# K padded to 52, lanes 18-31 idle in the second unit) and H = 64.
+LSTM_SHAPES = ((BATCH, 1, LATENT, 2, False), (16, 1, LATENT, 4, True),
+               (7, 5, LATENT, 1, False), (133, 3, 32, 3, True),
+               (64, 3, 50, 2, False), (33, 2, 50, 4, True),
+               (9, 2, 64, 2, True))
+WIDE_LATENT = 75
 
 
 def card_line() -> str:
@@ -153,10 +175,11 @@ def sass_counts(lib: Path) -> dict:
     return counts
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     """Build every kernel; print each kernel's registers, spills and
-    tensor-core instruction counts. A bf16 tensor-core kernel with no HMMA
-    or HGMMA instruction, or with spills, fails the run."""
+    tensor-core instruction counts. A spill in any kernel fails the run,
+    and so does a bf16 tensor-core kernel with no HMMA or HGMMA
+    instruction. Returns the counts by kernel symbol."""
     from svtpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -180,7 +203,9 @@ def phase_build() -> None:
         r = report[fns[0]]
         require(r["HMMA"] + r["HGMMA"] > 0,
                 f"{key}: no tensor-core instruction in its SASS")
-        require(r.get("spill_bytes", 0) == 0, f"{key}: ptxas spills")
+    for fn, r in report.items():
+        require(r.get("spill_bytes", 0) == 0, f"{fn}: ptxas spills")
+    return report
 
 
 def trunk_inputs(B, seed):
@@ -259,6 +284,11 @@ def phase_sampler_kernel() -> dict:
     noisy = binary_concrete_fused(logits, 77, TEMPERATURE, 0.1)
     noisy_ref = binary_concrete_fused_plain(logits, 77, TEMPERATURE, 0.1)
     noisy_mismatch = float((noisy != noisy_ref).float().mean())
+    seed_t = torch.tensor([77], device="cuda")
+    require(torch.equal(binary_concrete_fused(logits, seed_t, TEMPERATURE,
+                                              0.1), noisy),
+            "sampler: a seed tensor on the card gives other bits than the "
+            "same seed as an int")
     zeros = torch.zeros(256, 128, device="cuda")
     y = binary_concrete_fused(zeros, 3, 0.5, 1.0)
     p_one = float(y.mean())
@@ -271,13 +301,114 @@ def phase_sampler_kernel() -> dict:
           f"2^-8, one bf16 step below 1); noisy hard mismatch vs the plain "
           f"Philox {noisy_mismatch:.3e} (limit 1e-3); zero logits p(1) "
           f"{p_one:.4f} (0.45-0.55); same seed same {same}; new seed new "
-          f"{differs}; logits +8 p(1) {big:.4f} (> 0.95)")
+          f"{differs}; logits +8 p(1) {big:.4f} (> 0.95); a seed tensor "
+          f"on the card gives the int seed's bits")
     require(err <= 2.0 ** -8, "sampler noisy soft values disagree")
     require(noisy_mismatch < 1e-3, "sampler noisy: disagrees with Philox")
     require(0.45 < p_one < 0.55, "sampler: p(1) at zero logits")
     require(same and differs, "sampler: seed determinism")
     require(big > 0.95, "sampler: monotonicity")
     return {"max_abs_err": err}
+
+
+def seeded_lstm(H: int, layers: int, residual: bool, dt, seed: int):
+    """The port's ``LSTM(H, H)`` on the card with weights drawn from a
+    seed at torch's LSTM scale, U(-1/sqrt(H), 1/sqrt(H))."""
+    from svtpu_torch.ops.lstm import LSTM
+
+    lstm = LSTM(H, H, layers, residual, dt)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in lstm.parameters():
+            p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) / H ** 0.5)
+    return lstm.cuda()
+
+
+def lstm_inputs(B, T, H, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, T, H, generator=g) * 1.5).cuda().to(dt)
+
+
+def phase_lstm_kernel() -> dict:
+    """lstm_binary_concrete vs its plain version (the port's LSTM, then
+    binary_concrete_fused_plain) at every shape of ``LSTM_SHAPES``, in bf16
+    and f32. h: bf16 within two bf16 steps at the LSTM's scale (cuBLAS sums
+    the dot products in another order, so a rare element of h rounds to
+    the neighbouring bf16 and carries on through the recurrence): at h's
+    largest magnitude without the residual; with it, at the largest
+    magnitude of h - x (the LSTMs' part) plus two steps at the element's
+    own magnitude (the residual adds round there). f32 within 1e-5 with
+    TF32 off. Codes, noise off and on: bit for bit those of
+    binary_concrete_fused_plain and of the standalone kernel on the
+    kernel's own h; soft values within 2^-8 (one bf16 step below 1)."""
+    from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
+                                               binary_concrete_fused_plain)
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+
+    out = {}
+    for i, (B, T, H, layers, residual) in enumerate(LSTM_SHAPES):
+        name = f"[{B},{T},{H}] {layers} layers" + (" residual" if residual
+                                                   else "")
+        for dt in (torch.bfloat16, torch.float32):
+            lstm = seeded_lstm(H, layers, residual, dt, 30 + i)
+            x = lstm_inputs(B, T, H, dt, 40 + i)
+            with torch.inference_mode():
+                codes, h = lstm_binary_concrete(lstm, x, 0, TEMPERATURE,
+                                                noisy=False, return_h=True)
+                torch.cuda.synchronize()
+                h_ref = lstm(x)
+                require(codes.shape == h.shape == (B, T, H)
+                        and codes.dtype == h.dtype == dt,
+                        f"lstm_binary_concrete {name}: shape or dtype")
+                require(bool(torch.isfinite(h.float()).all()),
+                        f"lstm_binary_concrete {name}: non-finite h")
+                dev = (h.float() - h_ref.float()).abs()
+                err = float(dev.max())
+                if dt == torch.float32:
+                    limit = torch.full_like(dev, 1e-5)
+                elif residual:
+                    part = float((h_ref.float() - x.float()).abs().max())
+                    limit = 2 * 2.0 ** -7 * (part + h_ref.float().abs())
+                else:
+                    limit = torch.full_like(
+                        dev, 2 * 2.0 ** -7 * float(h_ref.float().abs().max()))
+                within = bool((dev <= limit).all())
+                limit = float(limit.min())
+                seed_t = torch.tensor([1000 + i], device="cuda")
+                same = torch.equal(codes, binary_concrete_fused_plain(
+                    h, 0, TEMPERATURE, noisy=False))
+                n_codes, n_h = lstm_binary_concrete(
+                    lstm, x, seed_t, TEMPERATURE, 0.1, return_h=True)
+                n_ref = binary_concrete_fused_plain(n_h, 1000 + i,
+                                                    TEMPERATURE, 0.1)
+                same_noisy = (torch.equal(n_codes, n_ref) and torch.equal(
+                    n_codes, binary_concrete_fused(n_h, seed_t, TEMPERATURE,
+                                                   0.1)))
+                s_codes, s_h = lstm_binary_concrete(
+                    lstm, x, seed_t, TEMPERATURE, 0.1, hard=False,
+                    return_h=True)
+                soft = float((s_codes.float() - binary_concrete_fused_plain(
+                    s_h, 1000 + i, TEMPERATURE, 0.1, hard=False).float())
+                    .abs().max())
+            tag = "bf16" if dt == torch.bfloat16 else "f32"
+            print(f"check lstm_binary_concrete vs plain, {name} {tag}: h "
+                  f"max_abs_err {err:.3e} (limit {limit:.3e}"
+                  f"{' at the smallest |h|' if residual and tag == 'bf16' else ''}"
+                  f"); codes vs "
+                  f"binary_concrete_fused_plain on the kernel's h: noise off "
+                  f"identical {same}, noisy identical (and to the standalone "
+                  f"kernel) {same_noisy}; noisy soft max_abs_err {soft:.3e} "
+                  f"(limit 2^-8); share of ones "
+                  f"{float(n_codes.float().mean()):.3f}")
+            require(within, f"lstm_binary_concrete {name} {tag}: h "
+                    "disagrees")
+            require(same and same_noisy, f"lstm_binary_concrete {name} "
+                    f"{tag}: codes differ from the sampler's on its h")
+            require(soft <= 2.0 ** -8, f"lstm_binary_concrete {name} {tag}: "
+                    "soft values disagree")
+            if i == 0 and dt == torch.bfloat16:
+                out["max_abs_err"] = err
+    return out
 
 
 def attention_inputs(B, N, D, dt, seed, spread=1.0, dominant=False):
@@ -372,9 +503,12 @@ def flagship(pallas: bool, dtype: str = "bfloat16"):
 
 def phase_main_path(card: str) -> dict:
     """The flagship encode through both kernels, counted; then the kernel
-    path's deterministic codes against the plain path's."""
+    path's deterministic codes against the plain path's, and one noisy
+    ``model.encode`` under sync-debug mode "error": it must not make the
+    host wait for the card."""
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
     from svtpu_torch.pipeline import VideoSymbolPipeline
 
     rng = np.random.default_rng(0)
@@ -383,18 +517,20 @@ def phase_main_path(card: str) -> dict:
     cfg, sd = flagship(True)
     pipe = VideoSymbolPipeline(cfg, sd)
 
-    counters = (fused_conv01, binary_concrete_fused)
+    counters = (fused_conv01, lstm_binary_concrete, binary_concrete_fused)
     for fn in counters:
         fn.launches = 0
     codes = {k: pipe.run_frames(v, i) for i, (k, v) in
              enumerate(frames.items())}
     torch.cuda.synchronize()
     launches = {"fused_conv01": fused_conv01.launches,
+                "lstm_binary_concrete": lstm_binary_concrete.launches,
                 "binary_concrete": binary_concrete_fused.launches}
     print(f"main path: run_frames x{len(frames)} ({', '.join(frames)}), "
           f"batch {BATCH}, noise on; launches {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"main path never launched {name}")
+    for name in ("fused_conv01", "lstm_binary_concrete"):
+        require(launches[name] >= len(frames),
+                f"main path launched {name} fewer than once per encode")
     for k, z in codes.items():
         require(z.shape == (BATCH, LATENT) and z.dtype == np.uint8
                 and set(np.unique(z)) <= {0, 1}, f"noisy codes {k}")
@@ -435,6 +571,22 @@ def phase_main_path(card: str) -> dict:
     # The model alone, frames already on the card as float.
     xd = torch.from_numpy(x).cuda().float().div(255.0)[:, None]
     gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            z = pipe.model.encode(xd, TEMPERATURE, True, 0.1, generator=gen)
+            host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    require(z.shape == (BATCH, 1, LATENT), "noisy encode under sync debug")
+    print(f"main path: noisy model.encode ran under "
+          f"torch.cuda.set_sync_debug_mode('error') and raised nothing; the "
+          f"call returned to the host after {host_ms:.3f} ms, the card "
+          f"finished after {card_ms:.3f} ms [{card}]")
     with torch.inference_mode():
         ms, spread = cuda_ms(lambda: pipe.model.encode(
             xd, TEMPERATURE, True, 0.1, generator=gen), iters=5)
@@ -448,10 +600,13 @@ def phase_main_path(card: str) -> dict:
 
 def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
     """Where one batch's time goes: each stage of run_frames alone, on the
-    input the main path gives it, timed with CUDA events."""
+    input the main path gives it, timed with CUDA events. The encoder LSTM
+    and the sampler are timed both as the fused kernel the path runs and as
+    the two stages it replaced."""
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01, kernel_weights
     from svtpu_torch.ops.image import resize_bilinear, to_float01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
 
     m, dt = pipe.model, pipe.cfg.torch_dtype
     enc = m.encoder_cnn
@@ -464,6 +619,7 @@ def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
         h2 = c2(h01.permute(0, 3, 1, 2), dt)
         logits = enc.fc(h2.reshape(BATCH, -1), dt)[:, None]
         h_seq = m.encoder_rnn(logits)
+        seed = torch.tensor([5], device="cuda")
         stages = {
             "copy 256x256 uint8 frames to the card":
                 lambda: u8["256x256"].cuda(),
@@ -478,14 +634,128 @@ def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
                                        c1.bias),
             "conv2 (cuDNN)": lambda: c2(h01.permute(0, 3, 1, 2), dt),
             "fc 65536 -> 25": lambda: enc.fc(h2.reshape(BATCH, -1), dt),
-            "encoder LSTM, 2 layers": lambda: m.encoder_rnn(logits),
-            "binary_concrete kernel": lambda: binary_concrete_fused(
-                h_seq, 5, TEMPERATURE, 0.1),
+            "encoder LSTM + sampler (fused kernel)":
+                lambda: lstm_binary_concrete(m.encoder_rnn, logits, seed,
+                                             TEMPERATURE, 0.1),
+            "  replaced: encoder LSTM, 2 layers (plain)":
+                lambda: m.encoder_rnn(logits),
+            "  replaced: binary_concrete kernel": lambda: binary_concrete_fused(
+                h_seq, seed, TEMPERATURE, 0.1),
         }
         for name, fn in stages.items():
             ms, spread = cuda_ms(fn, iters=5)
             print(f"time: stage {name}, batch {BATCH}: {ms:.4f} ms, spread "
                   f"{spread:.3f} [{card}]")
+        # Timed back to back, a stage of small launches reads the host's
+        # pace; inside the encode the host runs ahead of the card. So the
+        # LSTM stages also get their device time: 50 calls in a CUDA graph.
+        device = {
+            "encoder LSTM + sampler (fused kernel)":
+                stages["encoder LSTM + sampler (fused kernel)"],
+            "  replaced: encoder LSTM, 2 layers (plain) + binary_concrete "
+            "kernel": lambda: binary_concrete_fused(
+                m.encoder_rnn(logits), seed, TEMPERATURE, 0.1)}
+        for name, fn in device.items():
+            ms, spread = graph_ms(fn)
+            print(f"time: stage {name}, batch {BATCH}, device time (CUDA "
+                  f"graph of 50 calls): {ms:.4f} ms, spread {spread:.3f} "
+                  f"[{card}]")
+
+
+def phase_simple_path(card: str) -> dict:
+    """The simple variant, which binarizes the conv logits before its LSTM,
+    so its sampler is the standalone ``binary_concrete`` kernel: one noisy
+    ``run_frames`` batch of 512 seeded 64x64 frames with seeded weights
+    (bf16, latent 25), launches counted; then its deterministic codes
+    against the plain path's."""
+    from svtpu_torch.config import rbvae_variant
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    def cfg(kernel):
+        return rbvae_variant("simple", LATENT, compute_dtype="bfloat16",
+                             pallas_sampler=kernel)
+
+    sd = Seq2SeqBinaryVAE(cfg(True), device="cpu",
+                          generator=torch.Generator().manual_seed(22)
+                          ).state_dict()
+    frames = np.random.default_rng(3).integers(0, 256, (BATCH, 64, 64, 3),
+                                               np.uint8)
+    pipe = VideoSymbolPipeline(cfg(True), sd)
+    for fn in (binary_concrete_fused, lstm_binary_concrete):
+        fn.launches = 0
+    codes = pipe.run_frames(frames, 0)
+    torch.cuda.synchronize()
+    launches = {"binary_concrete": binary_concrete_fused.launches,
+                "lstm_binary_concrete": lstm_binary_concrete.launches}
+    require(launches["binary_concrete"] >= 1,
+            "simple path never launched binary_concrete")
+    require(codes.shape == (BATCH, LATENT) and codes.dtype == np.uint8
+            and set(np.unique(codes)) <= {0, 1}, "simple noisy codes")
+    det = [VideoSymbolPipeline(cfg(k), sd, noise=False).run_frames(frames)
+           for k in (True, False)]
+    agree = float((det[0] == det[1]).mean())
+    print(f"simple path: run_frames x1 (64x64, batch {BATCH}, bf16, seeded "
+          f"weights, noise on); launches {launches}; share of ones "
+          f"{codes.mean():.3f}; deterministic code agreement, kernel path vs "
+          f"plain path {agree} (limit 0.98)")
+    require(agree >= 0.98, "simple path: kernel path disagrees with the "
+            "plain path")
+    return {"launches": launches}
+
+
+def phase_wide_path(card: str) -> dict:
+    """A latent wider than the fused kernel takes: the contrastive RBVAE at
+    latent 75 (seeded weights, f32, the pixel geometry), whose encode runs
+    ``fused_conv01``, the plain encoder LSTM and the standalone
+    ``binary_concrete`` kernel. One noisy ``run_frames`` batch of 64
+    seeded 256x256 frames, launches counted; then its deterministic codes
+    against the plain path's."""
+    from svtpu_torch.config import rbvae_variant
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    def cfg(kernel):
+        return rbvae_variant("contrastive", WIDE_LATENT,
+                             compute_dtype="float32", pallas_trunk=kernel,
+                             pallas_sampler=kernel)
+
+    sd = Seq2SeqBinaryVAE(cfg(True), device="cpu",
+                          generator=torch.Generator().manual_seed(23)
+                          ).state_dict()
+    frames = np.random.default_rng(4).integers(0, 256, (64, 256, 256, 3),
+                                               np.uint8)
+    pipe = VideoSymbolPipeline(cfg(True), sd)
+    counters = {"fused_conv01": fused_conv01,
+                "binary_concrete": binary_concrete_fused,
+                "lstm_binary_concrete": lstm_binary_concrete}
+    for fn in counters.values():
+        fn.launches = 0
+    codes = pipe.run_frames(frames, 0)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    require(launches["fused_conv01"] >= 1 and launches["binary_concrete"] >= 1,
+            f"latent {WIDE_LATENT} path: a kernel was never launched")
+    require(launches["lstm_binary_concrete"] == 0,
+            f"latent {WIDE_LATENT} path launched the fused LSTM kernel")
+    require(codes.shape == (64, WIDE_LATENT) and codes.dtype == np.uint8
+            and set(np.unique(codes)) <= {0, 1}, "wide-latent noisy codes")
+    det = [VideoSymbolPipeline(cfg(k), sd, noise=False).run_frames(frames)
+           for k in (True, False)]
+    agree = float((det[0] == det[1]).mean())
+    print(f"wide-latent path: run_frames x1 (contrastive, latent "
+          f"{WIDE_LATENT}, 256x256, batch 64, f32, seeded weights, noise on); "
+          f"launches {launches}; share of ones {codes.mean():.3f}; "
+          f"deterministic code agreement, kernel path vs plain path {agree} "
+          f"(limit 0.99)")
+    require(agree >= 0.99, f"latent {WIDE_LATENT} path: kernel path "
+            "disagrees with the plain path")
+    return {"launches": launches}
 
 
 def percep_weights(frames: np.ndarray) -> dict:
@@ -554,13 +824,15 @@ def percep_pipeline(weights: dict, kernel: bool, dtype: str = "bfloat16",
 def phase_percep_path(card: str) -> dict:
     """The perceptual path at full width: 16 seeded 720x1280 frames through
     ``run_frames`` (host resize to 1280x704, SD encode in batches of 8 with
-    the attention kernel, percep RBVAE encode with the sampler kernel),
+    the attention kernel, percep RBVAE encode with the encoder LSTM and the
+    sampler in one kernel),
     then one ``decode_latents`` (the decoder's attention). Launches counted;
     then the kernel path against the plain path, deterministic."""
     from svtpu_torch.ops.attention import flash_attention
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
     from svtpu_torch.ops.image import resize_u8
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
 
     t0 = time.perf_counter()
     frames = np.random.default_rng(7).integers(
@@ -570,7 +842,8 @@ def phase_percep_path(card: str) -> dict:
     print(f"percep path: weights and pipeline built in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    counters = (flash_attention, binary_concrete_fused, fused_conv01)
+    counters = (flash_attention, lstm_binary_concrete, binary_concrete_fused,
+                fused_conv01)
     for fn in counters:
         fn.launches = 0
     by_kernel = flash_attention.launches_by_kernel
@@ -582,6 +855,7 @@ def phase_percep_path(card: str) -> dict:
     pixels = pipe.percep.decode_latents(z)
     torch.cuda.synchronize()
     launches = {"flash_attention": flash_attention.launches,
+                "lstm_binary_concrete": lstm_binary_concrete.launches,
                 "binary_concrete": binary_concrete_fused.launches,
                 "fused_conv01": fused_conv01.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -590,7 +864,7 @@ def phase_percep_path(card: str) -> dict:
           f"decode_latents x1 (2 latents); launches {launches}, "
           f"flash_attention by kernel {dict(by_kernel)}; peak device "
           f"memory {peak:.2f} GiB")
-    for name in ("flash_attention", "binary_concrete"):
+    for name in ("flash_attention", "lstm_binary_concrete"):
         require(launches[name] > 0, f"percep path never launched {name}")
     require(by_kernel["bf16_d512"] == launches["flash_attention"],
             "percep path: attention not on the D = 512 kernel")
@@ -756,12 +1030,40 @@ def attention_library(q, k, v):
     raise AssertionError("no scaled_dot_product_attention backend ran")
 
 
-def phase_kernel_times(card: str, main: dict, errs: dict,
-                       percep: dict) -> list:
+def graph_ms(fn, n: int = 50):
+    """The device time of one call: ``n`` calls captured in one CUDA graph,
+    whose replays are timed with CUDA events, so the host's launch pace
+    drops out. Median and spread as ``cuda_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms, spread = cuda_ms(graph.replay, warmup=3, iters=5)
+    return ms / n, spread
+
+
+def instance(symbol: str) -> str:
+    """``lstm_binary_concrete_kernel<T, UNITS>``'s template arguments from
+    its mangled symbol, e.g. "bf16 x2" (two hidden units a lane)."""
+    units = re.search(r"Li(\d)EE", symbol)
+    return (f"{'bf16' if 'bfloat16' in symbol else 'f32'} "
+            f"x{units.group(1) if units else '?'}")
+
+
+def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
+                       percep: dict, simple: dict, wide: dict) -> list:
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
                                                  fused_conv01_plain)
+    from svtpu_torch.ops.lstm_cuda import (lstm_binary_concrete,
+                                           lstm_binary_concrete_plain)
 
     rows = []
     x, w0, b0, w1, b1 = trunk_inputs(BATCH, 2)
@@ -785,7 +1087,7 @@ def phase_kernel_times(card: str, main: dict, errs: dict,
         name="fused_conv01", route="cuda",
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
-        launches=main["launches"]["fused_conv01"],
+        launches=sum(d["launches"]["fused_conv01"] for d in (main, wide)),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
@@ -796,13 +1098,17 @@ def phase_kernel_times(card: str, main: dict, errs: dict,
           f"{'faster' if ms < lib_ms else 'SLOWER'}), bound "
           f"{max(bound.values()):.3f} ms ({max(bound, key=bound.get)}), "
           f"launches per encode {main['per_encode']['fused_conv01']:.0f} "
-          f"[{card}]")
+          f"(pixel {main['launches']['fused_conv01']}, wide latent "
+          f"{wide['launches']['fused_conv01']}) [{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
         .to(torch.bfloat16)
-    ms, sp = cuda_ms(lambda: binary_concrete_fused(logits, 9, TEMPERATURE,
-                                                   0.1), iters=50)
+    seed = torch.tensor([9], device="cuda")
+    sample = lambda: binary_concrete_fused(  # noqa: E731
+        logits, seed, TEMPERATURE, 0.1)
+    ms, sp = cuda_ms(sample, iters=50)
+    dev_ms, dev_sp = graph_ms(sample)
     plain_ms, _ = cuda_ms(lambda: binary_concrete_fused_plain(
         logits, 9, TEMPERATURE, 0.1), iters=20)
     n = logits.numel()
@@ -810,21 +1116,80 @@ def phase_kernel_times(card: str, main: dict, errs: dict,
     # the noise, the tempered sigmoid and the threshold.
     bound = {"operations": 40 * n / PEAK_F32_FLOPS * 1e3,
              "bytes": 2 * 2 * n / PEAK_BYTES * 1e3}
+    launches = {k: d["launches"]["binary_concrete"] for k, d in
+                (("pixel", main), ("percep", percep), ("simple", simple),
+                 ("wide", wide))}
     rows.append(dict(
         name="binary_concrete", route="cuda",
         source="svtpu_torch/csrc/binary_concrete.cu",
         replaces="svtpu/ops/binarize_pallas.py:25",
-        launches=(main["launches"]["binary_concrete"]
-                  + percep["launches"]["binary_concrete"]),
+        launches=sum(launches.values()),
         max_abs_err=errs["binary_concrete"]["max_abs_err"], ms=ms,
-        plain_ms=plain_ms, bound_ms=max(bound.values()),
+        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=None))
-    print(f"time: binary_concrete bf16 [{BATCH},1,{LATENT}] noisy hard: "
-          f"kernel {ms:.4f} ms (spread {sp:.3f}), plain {plain_ms:.4f} ms, "
-          f"bound {max(bound.values()):.2e} ms ({max(bound, key=bound.get)})"
-          f", library none, launches per encode "
-          f"{main['per_encode']['binary_concrete']:.0f}, on the percep path "
-          f"{percep['launches']['binary_concrete']} [{card}]")
+    print(f"time: binary_concrete bf16 [{BATCH},1,{LATENT}] noisy hard, seed "
+          f"tensor on the card: wrapper {ms:.4f} ms (50 back-to-back calls, "
+          f"spread {sp:.3f}), device {dev_ms:.4f} ms (a CUDA graph of 50 "
+          f"launches, spread {dev_sp:.3f}), plain {plain_ms:.4f} ms, bound "
+          f"{max(bound.values()):.2e} ms ({max(bound, key=bound.get)}), "
+          f"library none, launches by path {launches} [{card}]")
+
+    # The fused encoder LSTM + sampler at the pixel path's shape: the
+    # flagship's 2-layer LSTM (seeded weights), [512, 1, 25] bf16.
+    layers = 2
+    lstm = seeded_lstm(LATENT, layers, False, torch.bfloat16, 50)
+    fused = lambda: lstm_binary_concrete(  # noqa: E731
+        lstm, logits, seed, TEMPERATURE, 0.1)
+    with torch.inference_mode():
+        ms, sp = cuda_ms(fused, iters=50)
+        dev_ms, dev_sp = graph_ms(fused)
+        plain_ms, _ = cuda_ms(lambda: lstm_binary_concrete_plain(
+            lstm, logits, 9, TEMPERATURE, 0.1), iters=20)
+        # Library yardstick: nn.LSTM's forward alone (no sampler), in the
+        # first dtype cuDNN takes.
+        ref = torch.nn.LSTM(LATENT, LATENT, layers, batch_first=True).cuda()
+        ref.load_state_dict(lstm.lstm.state_dict())
+        lib_dt = next(dt for dt in (torch.bfloat16, torch.float32)
+                      if torch.backends.cudnn.is_acceptable(logits.to(dt)))
+        ref, x_lib = ref.to(lib_dt), logits.to(lib_dt)
+        lib_ms, _ = cuda_ms(lambda: ref(x_lib), iters=20)
+    B, T, H = logits.shape
+    w_bytes = layers * (2 * 4 * H * H + 2 * 4 * H) * 4
+    # Per layer and (row, step): both gate products, 2 * 4H * 2H, and ~20
+    # operations a hidden unit for the gates, c and h; then ~40 an element
+    # for the sampler, as binary_concrete's row counts.
+    ops = layers * B * T * (2 * 4 * H * 2 * H + 20 * H) + 40 * B * T * H
+    bound = {"operations": ops / PEAK_F32_FLOPS * 1e3,
+             "bytes": (2 * 2 * B * T * H + w_bytes) / PEAK_BYTES * 1e3}
+    usage = {fn: r for fn, r in build.items()
+             if "lstm_binary_concrete_kernel" in fn}
+    launches = {k: d["launches"]["lstm_binary_concrete"] for k, d in
+                (("pixel", main), ("percep", percep))}
+    rows.append(dict(
+        name="lstm_binary_concrete", route="cuda",
+        source="svtpu_torch/csrc/lstm_binary_concrete.cu",
+        replaces="svtpu/ops/binarize_pallas.py:25",
+        launches=sum(launches.values()),
+        max_abs_err=errs["lstm_binary_concrete"]["max_abs_err"], ms=ms,
+        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=max(bound.values()),
+        bound_by=max(bound, key=bound.get), library_ms=lib_ms,
+        library=f"nn.LSTM forward alone, no sampler, "
+                f"{str(lib_dt).split('.')[-1]} (cuDNN)",
+        registers={fn: r.get("registers") for fn, r in usage.items()},
+        spill_bytes=sum(r.get("spill_bytes", 0) for r in usage.values())))
+    print(f"time: lstm_binary_concrete bf16 [{B},{T},{H}], {layers} layers, "
+          f"noisy hard, seed tensor on the card: wrapper {ms:.4f} ms (50 "
+          f"back-to-back calls, spread {sp:.3f}), device {dev_ms:.4f} ms (a "
+          f"CUDA graph of 50 launches, spread {dev_sp:.3f}), plain "
+          f"{plain_ms:.4f} ms (the port's LSTM + binary_concrete_fused_plain)"
+          f", nn.LSTM forward alone in {lib_dt} (cuDNN, no sampler) "
+          f"{lib_ms:.4f} ms, bound {max(bound.values()):.2e} ms "
+          f"({max(bound, key=bound.get)}: {ops / 1e6:.2f} MFLOP, "
+          f"{(2 * 2 * B * T * H + w_bytes) / 1e3:.1f} KB), launches by path "
+          f"{launches}; registers "
+          f"{ {instance(fn): r.get('registers') for fn, r in usage.items()} }"
+          f", "
+          f"spill bytes {rows[-1]['spill_bytes']} [{card}]")
 
     from svtpu_torch.ops.attention import blocked_attention, flash_attention
 
@@ -869,13 +1234,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     card = phase_toolchain()
-    phase_build()
+    build = phase_build()
     errs = {"fused_conv01": phase_conv_kernel(),
             "binary_concrete": phase_sampler_kernel(),
+            "lstm_binary_concrete": phase_lstm_kernel(),
             "flash_attention": phase_attention_kernel()}
     main_path = phase_main_path(card)
+    simple = phase_simple_path(card)
+    wide = phase_wide_path(card)
     percep = phase_percep_path(card)
-    rows = phase_kernel_times(card, main_path, errs, percep)
+    rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
+                              wide)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "

@@ -5,7 +5,8 @@
 Field names and defaults are the reference's, so one config means the same
 model in both packages. ``pallas_trunk`` / ``pallas_sampler`` keep their
 names: here they route ``encode`` through the hand-written CUDA kernels
-(``ops/conv_trunk_cuda.py``, ``ops/binarize_cuda.py``).
+(``ops/conv_trunk_cuda.py``; ``ops/lstm_cuda.py`` after the encoder LSTM,
+``ops/binarize_cuda.py`` before it).
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ class RBVAEConfig:
     compute_dtype: str = "float32"
     # Accepted for config compatibility; the port has no training slice yet.
     remat: bool = False
-    # Inference ``encode`` through the hand-written sampler kernel.
+    # Inference ``encode`` through the hand-written sampler kernels (fused
+    # with the encoder LSTM where the variant binarizes after it).
     pallas_sampler: bool = False
     # Inference ``encode`` through the hand-written conv0+conv1 kernel
     # (contrastive/triplet 256x256 pixel geometry only).

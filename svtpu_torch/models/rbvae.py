@@ -13,7 +13,12 @@ reference ``.pt`` state dict loads as it is.
 ``encode`` routes through the hand-written kernels when the config asks for
 them, as the JAX package routes through its Pallas kernels:
 ``pallas_trunk`` → ``ops/conv_trunk_cuda.py`` (conv0+conv1),
-``pallas_sampler`` → ``ops/binarize_cuda.py``.
+``pallas_sampler`` → ``ops/lstm_cuda.py`` (the encoder LSTM and the sampler
+in one kernel) where the variant binarizes after the LSTM and the kernel
+takes its LSTM (latent <= 64), and ``ops/binarize_cuda.py`` (the sampler
+alone) where it binarizes before it (simple) or after a wider LSTM, which
+runs as plain ops. The kernels' noise seed is drawn from the generator on its own
+device and stays there, so the host never waits for it.
 
 Randomness is explicit: Binary-Concrete noise comes from a
 ``torch.Generator`` (or an injected uniform ``u``), and the initial weights
@@ -34,6 +39,7 @@ from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
 from svtpu_torch.ops.conv import Conv2dTorch, ConvTranspose2dTorch, Dense
 from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
 from svtpu_torch.ops.lstm import LSTM
+from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete, takes
 
 _NOT_PORTED = ("int8_trunk", "conv0_s2d", "deconv_d2s")
 
@@ -193,27 +199,39 @@ class Seq2SeqBinaryVAE(nn.Module):
                           trunk: str = "torch"):
         """Conv trunk + encoder LSTM + binarization (inference).
 
-        ``sampler``: "torch" (the plain op) or "kernel" (the fused sampler
-        kernel; its noise is keyed by a seed drawn from ``generator``).
+        ``sampler``: "torch" (the plain op) or "kernel" (the sampler
+        kernels; their noise is keyed by a seed drawn from ``generator``).
+        On the kernel route a post-RNN variant whose LSTM the fused kernel
+        takes (``lstm_cuda.takes``) runs the encoder LSTM and the sampler
+        as one kernel, and its ``h_seq`` is ``None``; a wider one runs the
+        plain LSTM, then the sampler kernel.
         ``trunk``: "torch" or "kernel" (the fused conv0+conv1 kernel).
         """
         c = self.cfg
+        if sampler not in ("torch", "kernel"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        if sampler == "kernel" and u is not None:
+            raise ValueError("the sampler kernel draws its own noise; "
+                             "an injected u needs sampler='torch'")
+        noisy = generator is not None
+
+        def seed(t):
+            """A one-element int64 tensor on ``t``'s device, never read on
+            the host: ``int()`` of a seed drawn on the card would wait for
+            every launch before it. The copy onto a CPU ``t`` blocks: the
+            plain sampler reads the seed there at once."""
+            if not noisy:
+                return 0
+            return torch.randint(2 ** 31 - 1, (1,), generator=generator,
+                                 device=generator.device).to(
+                                     t.device,
+                                     non_blocking=t.device.type == "cuda")
 
         def binarize(t):
             if sampler == "kernel":
-                if u is not None:
-                    raise ValueError("the sampler kernel draws its own noise; "
-                                     "an injected u needs sampler='torch'")
-                noisy = generator is not None
-                seed = (int(torch.randint(2 ** 31 - 1, (1,),
-                                          generator=generator,
-                                          device=generator.device))
-                        if noisy else 0)
-                return binary_concrete_fused(t, seed, temperature,
+                return binary_concrete_fused(t, seed(t), temperature,
                                              noise_scale, hard, c.bc_eps,
                                              noisy)
-            if sampler != "torch":
-                raise ValueError(f"unknown sampler {sampler!r}")
             return binary_concrete(t, generator, temperature, hard,
                                    c.bc_eps, noise_scale, u=u)
 
@@ -224,6 +242,10 @@ class Seq2SeqBinaryVAE(nn.Module):
             # simple variant: binarize conv logits, then run the LSTMs.
             z_seq = binarize(logits)
             return logits, self.encoder_rnn(z_seq), z_seq
+        if sampler == "kernel" and takes(self.encoder_rnn):
+            return logits, None, lstm_binary_concrete(
+                self.encoder_rnn, logits, seed(logits), temperature,
+                noise_scale, hard, c.bc_eps, noisy)
         h_seq = self.encoder_rnn(logits)
         return logits, h_seq, binarize(h_seq)
 

@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "svtpu_torch"
-SOURCES = ("binary_concrete", "flash_attention", "fused_conv01")
+SOURCES = ("binary_concrete", "flash_attention", "fused_conv01",
+           "lstm_binary_concrete")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -87,13 +88,22 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The bound library for ``csrc/<name>.cu``, built if needed."""
+def load(name: str, signatures=None) -> ctypes.CDLL:
+    """The bound library for ``csrc/<name>.cu``, built if needed.
+
+    ``signatures`` maps an exported function's name to its ``(restype,
+    argtypes)``; they are set once, when the library is first loaded, and
+    not on every call.
+    """
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build_all((name,))
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, (restype, argtypes) in (signatures or {}).items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
         return lib
 
 

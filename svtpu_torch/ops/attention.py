@@ -31,6 +31,8 @@ from svtpu_torch.ops import _build
 _DTYPES = (torch.float32, torch.bfloat16)
 # The kernels of csrc/flash_attention.cu, by the launcher's index.
 KERNELS = {"f32": 0, "bf16": 1, "bf16_d512": 2}
+_SIGNATURES = {"svt_flash_attention": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+    ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])}
 MAX_D = 512
 
 
@@ -117,11 +119,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or N == 0:
         return out
-    lib = _build.load("flash_attention")
-    fn = lib.svt_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("flash_attention", _SIGNATURES).svt_flash_attention
     kernel = kernel_for(q.dtype, D)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -12,7 +12,10 @@ element for element, not just in distribution. Inference only: no gradient.
 
 ``binary_concrete_fused`` takes the plain version for a CPU tensor and the
 kernel for a CUDA tensor; it counts its kernel launches in
-``binary_concrete_fused.launches``.
+``binary_concrete_fused.launches``. The seed is a Python int or a
+one-element int64 tensor on the logits' device, which the kernel reads
+where it lies: a seed drawn on the card never makes the host wait for it.
+Only the plain version reads a seed tensor's value on the host.
 """
 from __future__ import annotations
 
@@ -23,6 +26,10 @@ import torch
 from svtpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SIGNATURES = {"svt_binary_concrete": (ctypes.c_int, [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -62,11 +69,12 @@ def philox_uniform(n: int, seed: int, device=None) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def binary_concrete_fused_plain(logits: torch.Tensor, seed: int,
+def binary_concrete_fused_plain(logits: torch.Tensor, seed,
                                 temperature=0.5, noise_scale=1.0,
                                 hard: bool = True, eps: float = 1e-8,
                                 noisy: bool = True) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, on any device."""
+    """The kernel's arithmetic in plain PyTorch, on any device. ``seed``:
+    an int or a one-element tensor, whose value it reads on the host."""
     x = logits.to(torch.float32)
     if noisy:
         u = philox_uniform(x.numel(), int(seed), x.device).reshape(x.shape)
@@ -78,23 +86,44 @@ def binary_concrete_fused_plain(logits: torch.Tensor, seed: int,
     return y.to(logits.dtype)
 
 
-def _check_seed(seed) -> int:
+def check_seed(seed):
+    """A seed for the sampler kernels: an int in ``[0, 2**64)``, returned as
+    an int, or a one-element int64 tensor, returned untouched. A tensor's
+    value is never read here: on the card that would make the host wait
+    for the work that draws it."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError(f"a seed tensor must hold one int64, got "
+                             f"{seed.dtype} {tuple(seed.shape)}")
+        return seed
     seed = int(seed)
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be in [0, 2**64): {seed}")
     return seed
 
 
-def binary_concrete_fused(logits: torch.Tensor, seed: int,
+def seed_args(seed, device) -> tuple:
+    """The launchers' ``(seed_ptr, seed)`` pair: a seed tensor (which must
+    lie on ``device``) by its address, an int by value."""
+    if isinstance(seed, torch.Tensor):
+        if seed.device != device:
+            raise ValueError(f"the seed is on {seed.device}, the logits on "
+                             f"{device}")
+        return seed.data_ptr(), 0
+    return None, seed
+
+
+def binary_concrete_fused(logits: torch.Tensor, seed,
                           temperature=0.5, noise_scale=1.0,
                           hard: bool = True, eps: float = 1e-8,
                           noisy: bool = True) -> torch.Tensor:
     """Sample Binary-Concrete values for logits of any shape in one pass.
 
     CPU tensor: the plain version. CUDA tensor: the kernel, or an
-    exception — there is no fallback.
+    exception — there is no fallback. ``seed``: an int, or a one-element
+    int64 tensor on the logits' device (see ``check_seed``).
     """
-    seed = _check_seed(seed)
+    seed = check_seed(seed)
     if logits.device.type == "cpu":
         return binary_concrete_fused_plain(logits, seed, temperature,
                                            noise_scale, hard, eps, noisy)
@@ -102,19 +131,15 @@ def binary_concrete_fused(logits: torch.Tensor, seed: int,
         raise ValueError(f"unsupported device {logits.device}")
     if logits.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {logits.dtype}")
+    seed_ptr, seed_val = seed_args(seed, logits.device)
     x = logits.contiguous()
     out = torch.empty_like(x)
-    lib = _build.load("binary_concrete")
-    fn = lib.svt_binary_concrete
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_ulonglong, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("binary_concrete", _SIGNATURES).svt_binary_concrete
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _DTYPES[x.dtype],
-                 seed, float(temperature), float(noise_scale), float(eps),
-                 int(hard), int(noisy), _build.stream_handle(x.device))
+                 seed_ptr, seed_val, float(temperature), float(noise_scale),
+                 float(eps), int(hard), int(noisy),
+                 _build.stream_handle(x.device))
     _build.check(err, "binary_concrete")
     binary_concrete_fused.launches += 1
     return out

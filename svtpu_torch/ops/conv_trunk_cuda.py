@@ -29,6 +29,8 @@ from svtpu_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SHAPES = {"w0": (64, 3, 3, 3), "b0": (64,), "w1": (64, 64, 3, 3),
            "b1": (64,)}
+_SIGNATURES = {"svt_fused_conv01": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])}
 
 
 def fused_conv01_plain(x, w0, b0, w1, b1) -> torch.Tensor:
@@ -134,11 +136,7 @@ def fused_conv01(x, w0, b0, w1, b1) -> torch.Tensor:
     out = torch.empty((B, 64, 64, 64), dtype=dt, device=x.device)
     if B == 0:
         return out
-    lib = _build.load("fused_conv01")
-    fn = lib.svt_fused_conv01
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("fused_conv01", _SIGNATURES).svt_fused_conv01
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(),
                  b1k.data_ptr(), out.data_ptr(), B, _DTYPES[dt],

@@ -22,3 +22,10 @@ jax.config.update("jax_default_matmul_precision", "highest")
 def pytest_sessionstart(session):
     assert jax.default_backend() == "cpu", "tests must run on CPU"
     assert len(jax.devices()) == 8, "expected 8 virtual CPU devices"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one (run them "
+        "on the card with `python3 -m pytest --noconftest -m cuda "
+        "tests/test_torch_cuda.py`)")

@@ -1,5 +1,6 @@
 """The kernel builder's cache key (no ``nvcc`` needed): a library is named
 by its source and every shared header, so editing either rebuilds it."""
+import ctypes
 import shutil
 
 from svtpu_torch.ops import _build
@@ -49,3 +50,34 @@ def test_nvcc_command_targets_sm_90a_and_reports_usage(tmp_path, monkeypatch):
     args = _build._nvcc_cmd("fused_conv01", tmp_path / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in args
     assert "-v" in args and args[-1].endswith("fused_conv01.cu")
+
+
+def test_the_fused_lstm_sampler_is_built_and_shares_the_sampler_header():
+    assert "lstm_binary_concrete" in _build.SOURCES
+    for name in ("binary_concrete", "lstm_binary_concrete"):
+        assert '#include "binary_concrete.cuh"' in (
+            _build.SRC_DIR / f"{name}.cu").read_text()
+
+
+def test_signatures_are_bound_once_per_loaded_library(monkeypatch):
+    """``load`` sets an exported function's restype and argtypes when it
+    first loads the library, and a later call leaves them alone."""
+    class Fn:
+        pass
+
+    class Lib:
+        def __init__(self, path):
+            self.path, self.svt_fn = path, Fn()
+
+    loaded = []
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_all", lambda names: {})
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: loaded.append(path) or Lib(path))
+    sig = {"svt_fn": (ctypes.c_int, [ctypes.c_void_p])}
+    lib = _build.load("binary_concrete", sig)
+    assert lib.svt_fn.restype is ctypes.c_int
+    assert lib.svt_fn.argtypes == [ctypes.c_void_p]
+    lib.svt_fn.argtypes = "untouched"
+    assert _build.load("binary_concrete", sig) is lib
+    assert lib.svt_fn.argtypes == "untouched" and len(loaded) == 1

@@ -10,8 +10,11 @@ from svtpu_torch.config import PerceptualConfig, rbvae_variant
 from svtpu_torch.models.autoencoder_kl import AutoencoderKL
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops.attention import flash_attention
-from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused, check_seed,
+                                           seed_args)
 from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+from svtpu_torch.ops.lstm import LSTM
+from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
 from svtpu_torch.perceptual.embed import PerceptualEncoder
 from svtpu_torch.pipeline import VideoSymbolPipeline
 
@@ -89,6 +92,31 @@ def test_wrappers_refuse_devices_without_their_kernel():
                      torch.empty(64, **meta),
                      torch.empty(64, 64, 3, 3, **meta),
                      torch.empty(64, **meta))
+
+
+def test_fused_lstm_sampler_refuses_devices_without_its_kernel():
+    lstm = LSTM(25, 25, 2).to("meta")
+    with pytest.raises(ValueError):
+        lstm_binary_concrete(lstm, torch.empty(4, 1, 25, device="meta"), 1)
+
+
+def test_a_seed_tensor_is_never_read_on_the_host():
+    """A seed drawn on the card stays there: the check passes the tensor
+    through without reading it (a meta tensor has no value to read), and a
+    seed on another device than the logits raises instead of being
+    copied."""
+    seed = torch.empty(1, dtype=torch.int64, device="meta")
+    assert check_seed(seed) is seed
+    with pytest.raises(ValueError):
+        seed_args(seed, torch.device("cpu"))
+    assert seed_args(torch.tensor([5]), torch.device("cpu"))[1] == 0
+    assert seed_args(5, torch.device("cpu")) == (None, 5)
+    for bad in (torch.tensor([1, 2]), torch.tensor([1.0]),
+                torch.tensor([1], dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            check_seed(bad)
+    with pytest.raises(ValueError):
+        check_seed(-1)
 
 
 def test_unported_switches_raise():
