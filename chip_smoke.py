@@ -30,7 +30,17 @@ on and their launches counted:
     ``PerceptualEncoder`` batches of 8 through ``flash_attention``, then the
     ``percep-flagship`` RBVAE (latent 25, 4-layer residual LSTM) through
     ``lstm_binary_concrete``, on 16 seeded 720x1280 frames; and one
-    ``decode_latents`` (the decoder's attention).
+    ``decode_latents`` (the decoder's attention);
+  * the training path: ``Trainer.train`` of the flagship preset (latent
+    25, bf16, full width, batch 32) on a seeded synthetic video at the
+    geometry of ``chinese_chess``, 3 fused epochs and the same 3 one step
+    at a time under deterministic algorithms, whose probes run
+    ``fused_conv01`` and ``lstm_binary_concrete``; one f32 step on the
+    card against the same step on the CPU; a fused epoch's steps under
+    ``torch.cuda.set_sync_debug_mode("error")``; one epoch of the
+    ``percep-flagship`` preset on seeded SD-shaped latents; and the train
+    step's time, its forward/backward/Adam split, peak memory, FLOP count
+    and bound.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -42,6 +52,7 @@ without one.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -87,6 +98,26 @@ LSTM_SHAPES = ((BATCH, 1, LATENT, 2, False), (16, 1, LATENT, 4, True),
                (64, 3, 50, 2, False), (33, 2, 50, 4, True),
                (9, 2, 64, 2, True))
 WIDE_LATENT = 75
+# The training path: the ``flagship`` and ``percep-flagship`` presets
+# (svtpu/cli.py:194-201, 215-221) as TrainConfig fields, on a synthetic
+# video at the geometry of BUILTIN_VIDEOS["chinese_chess"].
+FLAGSHIP_TRAIN = dict(
+    batch_size=32, learning_rate=3e-4, init_temperature=2.0,
+    final_temperature=0.2, anneal_rate=1e-3, num_steps_to_update=4,
+    bernoulli_p=0.1, contrast_on="p", contextfree_contrast=True, margin=3.5,
+    noise_ratio=0.3, eval_noise_ratio=0.1, beta_kl=0.2, alpha=4.0,
+    select_by="combined", l1_logits=0.1, restart_check_epoch=250,
+    restart_min_sep=10.0, max_restarts=3)
+PERCEP_TRAIN = dict(
+    batch_size=16, learning_rate=3e-4, init_temperature=2.0,
+    final_temperature=0.2, anneal_rate=3e-4, num_steps_to_update=4,
+    bernoulli_p=0.1, contrast_on="p", contextfree_contrast=True, margin=3.5,
+    noise_ratio=0.3, eval_noise_ratio=0.1, beta_kl=0.2, alpha=4.0,
+    select_by="combined")
+TRAIN_EPOCHS = 3
+# svtpu's train metric names for the flagship preset.
+TRAIN_METRICS = {"total_loss", "recon_loss", "kl_loss", "contrast_loss",
+                 "l1_loss", "temperature"}
 
 
 def card_line() -> str:
@@ -1007,6 +1038,391 @@ def phase_percep_breakdown(card: str, pipe, frames, batch) -> None:
                   f"spread {spread:.3f} [{card}]")
 
 
+class MemoryStore:
+    """Frames in memory with ``FrameStore``'s interface (``array``,
+    ``indices``, ``rows``, ``gather``, ``item_shape``, ``dtype``): row i
+    holds frame id ``indices[i]``. The card's host may lack PIL, and the
+    repo ships no frames."""
+
+    def __init__(self, array: np.ndarray, indices):
+        self.array = array
+        self.indices = np.asarray(indices)
+        self._row = {int(f): r for r, f in enumerate(self.indices)}
+
+    @property
+    def item_shape(self):
+        return self.array.shape[1:]
+
+    @property
+    def dtype(self):
+        return self.array.dtype
+
+    def rows(self, frame_indices):
+        flat = np.asarray(frame_indices).reshape(-1)
+        return np.asarray([self._row[int(i)] for i in flat],
+                          np.int64).reshape(np.shape(frame_indices))
+
+    def gather(self, frame_indices):
+        return self.array[self.rows(frame_indices)]
+
+
+def train_video():
+    """The segment frames of ``chinese_chess``'s geometry (5 states, flags
+    74, 206, 282, 389, last frame 479, grey-out 10: 396 frames) as seeded
+    256x256 RGB: a base colour per state plus noise. Returns the meta, the
+    0.1/0.1 splits, the frame ids and the states of the frames."""
+    from svtpu_torch.config import BUILTIN_VIDEOS
+    from svtpu_torch.data.segments import assign_label, split_segments
+
+    meta = BUILTIN_VIDEOS["chinese_chess"]
+    splits = split_segments(meta.state_segments(), 0.1, 0.1)
+    ids = sorted(splits.flat("train") + splits.flat("val")
+                 + splits.flat("test"))
+    states = np.asarray([assign_label(i, meta.flags) for i in ids])
+    return meta, splits, ids, states
+
+
+def train_step_flops(cfg, frames: int) -> float:
+    """FLOPs of one flagship train step, from the layer shapes: ``frames``
+    through the encoder and the decoder, the same frames through the
+    encoder once more (the context-free pass), the backward twice the
+    forward. Counts the convs, fc layers and LSTM matmuls."""
+    k2, (h, w) = cfg.conv_kernel ** 2, cfg.input_hw
+    chans = (cfg.in_channels,) + tuple(cfg.conv_features)
+    enc = 0
+    for i in range(len(cfg.conv_features)):        # output positions x taps
+        h, w = (h + 1) // 2, (w + 1) // 2
+        enc += h * w * chans[i + 1] * chans[i] * k2
+    dec = enc                                      # mirrored transposed convs
+    fc = cfg.encoded_dim * cfg.latent_dim
+    L = cfg.latent_dim
+    lstm = cfg.lstm_layers * 4 * L * 2 * L
+    fwd_macs = frames * (2 * (enc + fc + lstm) + dec + fc + lstm)
+    return 3 * 2 * fwd_macs
+
+
+def card_cpu_step(mcfg, tcfg, batch: np.ndarray, seed: int,
+                  dtype: str) -> dict:
+    """One train step's loss and gradients on the card and on the CPU, in
+    compute dtype ``dtype``, from the same parameters and injected uniforms
+    (dropout off, TF32 off as ``main`` sets)."""
+    import dataclasses
+
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.training.trainer import (Noise, fold_lstm_biases,
+                                              pair_objective)
+
+    cfg = dataclasses.replace(mcfg, compute_dtype=dtype,
+                              conv_dropout=0.0, pallas_trunk=False,
+                              pallas_sampler=False)
+    sd = Seq2SeqBinaryVAE(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(seed)
+                          ).state_dict()
+    B, _, S = batch.shape[:3]
+    rng = np.random.default_rng(seed)
+    u = {0: rng.random((2 * B, S, cfg.latent_dim), np.float32),
+         1: rng.random((2 * B * S, 1, cfg.latent_dim), np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Seq2SeqBinaryVAE(cfg, device=dev)
+        model.load_state_dict(sd)
+        fold_lstm_biases(model)
+        total, _ = pair_objective(
+            model, tcfg, torch.from_numpy(batch).to(dev), 0.9, False,
+            Noise(None, dev, {k: torch.from_numpy(v).to(dev)
+                              for k, v in u.items()}), deterministic=False)
+        total.backward()
+        out[dev] = (float(total.detach()),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None})
+    return out
+
+
+def phase_train_path(card: str) -> dict:
+    """The training slice on the card: see the module docstring. Every
+    check raises on failure."""
+    import dataclasses
+
+    from svtpu_torch.config import TrainConfig, rbvae_variant
+    from svtpu_torch.data.datasets import EmbeddingStore
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    meta, splits, ids, states = train_video()
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 216, (meta.num_states, 1, 1, 3), np.uint8)
+    frames = base[states] + rng.integers(0, 40, (len(ids), 256, 256, 3),
+                                         np.uint8)
+    store = MemoryStore(frames, ids)
+    mcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16",
+                         pallas_trunk=True, pallas_sampler=True)
+    n_val = len(splits.flat("val"))
+    chunks = -(-n_val // 128)
+    B = FLAGSHIP_TRAIN["batch_size"]
+    S = meta.num_states
+    print(f"train path: synthetic {len(ids)} frames 256x256 at "
+          f"chinese_chess's geometry ({S} states), train "
+          f"{len(splits.flat('train'))} val {n_val} frames; made in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # Check 2: one step, card against CPU. In f32 the loss is held to
+    # 1e-4; its gradients are printed but held in f64: a ReLU whose input
+    # rounds to the other side of 0 on one device drops that element's
+    # whole gradient, and at full width some do (PERF.md §6).
+    tcfg = TrainConfig(**FLAGSHIP_TRAIN)
+    trainer = Trainer(mcfg, tcfg, store, splits, meta.flags, device="cuda")
+    rows = next(iter(trainer.train_batcher.epoch_indices(0)))[:2]
+    for dtype in ("float32", "float64"):
+        steps = card_cpu_step(mcfg, tcfg, store.array[rows], 7, dtype)
+        (loss_cpu, g_cpu), (loss_card, g_card) = steps["cpu"], steps["cuda"]
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        errs = {n: float((g_card[n] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for n, g in g_cpu.items()}
+        worst = max(errs, key=errs.get)
+        print(f"check train step {dtype}, card vs CPU ([2,2,{S},256,256,3], "
+              f"same parameters and uniforms, dropout off): loss "
+              f"{loss_card:.8f} vs {loss_cpu:.8f}, rel err {loss_rel:.2e} "
+              f"(limit 1e-4); worst gradient err / its tensor's max |grad| "
+              f"{errs[worst]:.2e} ({worst}) over {len(g_cpu)} tensors, "
+              f"{sum(e > 1e-3 for e in errs.values())} above 1e-3 (limit "
+              f"1e-3 {'held' if dtype == 'float64' else 'printed'})")
+        require(loss_rel <= 1e-4, f"train step {dtype}: card loss disagrees "
+                "with the CPU")
+        require(set(g_card) == set(g_cpu), "train step: gradient sets")
+    require(errs[worst] <= 1e-3, "train step float64: card gradients "
+            "disagree with the CPU")
+
+    # The main path: 3 fused epochs, then the same 3 one step at a time,
+    # deterministic algorithms on, the probes' kernel launches counted.
+    counters = {"fused_conv01": fused_conv01,
+                "lstm_binary_concrete": lstm_binary_concrete,
+                "binary_concrete": binary_concrete_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    hist, trainers, wall = {}, {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for fused in (True, False):
+            tr = Trainer(mcfg, dataclasses.replace(
+                tcfg, fused_epoch=fused, val_every=1), store, splits,
+                meta.flags, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist[fused] = tr.train(num_epochs=TRAIN_EPOCHS)
+            torch.cuda.synchronize()
+            wall[fused] = time.perf_counter() - t0
+            trainers[fused] = tr
+    torch.use_deterministic_algorithms(False)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    print(f"train path: Trainer.train x{TRAIN_EPOCHS} epochs fused + "
+          f"x{TRAIN_EPOCHS} per step (flagship preset, batch {B}, "
+          f"{trainers[True].train_batcher.num_batches()} steps an epoch, "
+          f"val_every 1), deterministic algorithms on: wall {wall[True]:.2f} "
+          f"s fused, {wall[False]:.2f} s per step (first run includes "
+          f"warm-up); probe launches {launches}; ops without a "
+          f"deterministic implementation: {nondet or 'none'} [{card}]")
+
+    # Check 1: finite losses, svtpu's metric names.
+    for fused, h in hist.items():
+        for e, (tl, vl) in enumerate(zip(h["train_losses"],
+                                         h["val_losses"])):
+            require(set(tl) == TRAIN_METRICS,
+                    f"train metric names {sorted(tl)} (fused {fused})")
+            require(all(np.isfinite(v) for v in list(tl.values())
+                        + list(vl.values())),
+                    f"non-finite metric, epoch {e} (fused {fused})")
+    losses = [round(t["total_loss"], 4) for t in hist[True]["train_losses"]]
+    scores = [round(v["combined_score"], 4)
+              for v in hist[True]["val_losses"]]
+    print(f"check train metrics: names {sorted(TRAIN_METRICS)}, all finite; "
+          f"fused epochs' total_loss {losses}, combined_score {scores}")
+
+    # Check 3: fused = per-step.
+    pf = hist[True]["final_state"].model.state_dict()
+    pu = hist[False]["final_state"].model.state_dict()
+    param_err = max(float((pf[k].float() - pu[k].float()).abs().max())
+                    for k in pf)
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(hist[True]["train_losses"],
+                                   hist[False]["train_losses"])
+                   for k in a)
+    print(f"check fused epoch vs per-step loop after {TRAIN_EPOCHS} bf16 "
+          f"epochs: max |param diff| {param_err:.3e} (limit 1e-6), max "
+          f"per-epoch loss rel diff {loss_err:.3e}")
+    if nondet:
+        require(loss_err <= 1e-3, "fused vs per-step: losses disagree")
+    else:
+        require(param_err <= 1e-6, "fused vs per-step: parameters disagree")
+
+    # Check 4: the probes ran the kernels, and agree with the plain route.
+    probed = sum(len([v for v in h["val_losses"] if v])
+                 for h in hist.values())
+    want = 2 * chunks * probed      # consistency + separation a probe
+    require(launches["fused_conv01"] == want
+            and launches["lstm_binary_concrete"] == want,
+            f"probe launches {launches}, expected {want} of each kernel")
+    tr = trainers[True]
+    model = hist[True]["final_state"].model
+    plain = Seq2SeqBinaryVAE(dataclasses.replace(
+        mcfg, pallas_trunk=False, pallas_sampler=False), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    val_rows = store.rows(np.asarray(splits.flat("val")))
+    codes = {name: tr.encode_frames(m, val_rows, 0.2, noise=False,
+                                    from_bank=True)
+             for name, m in (("kernel", model), ("plain", plain))}
+    agree = float((codes["kernel"] == codes["plain"]).mean())
+    print(f"check probe codes through the kernels vs the plain route "
+          f"({n_val} val frames, deterministic): agreement {agree:.4f} "
+          f"(limit 0.98); share of ones {codes['kernel'].mean():.3f}")
+    require(agree >= 0.98, "probe codes: kernel route disagrees")
+
+    # Check 5, and the epochs' wall time: a fused epoch's steps under
+    # sync-debug "error", its upload and readback outside.
+    state = hist[True]["final_state"]
+    for _ in range(2):
+        tr._fused_epoch(state, TRAIN_EPOCHS)       # warm, deterministic off
+    fused_s = []
+    for e in range(3):
+        idx = tr._upload_epoch(TRAIN_EPOCHS + e)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            vec, _ = tr._fused_steps(state, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host_s = time.perf_counter() - t0
+        vec.cpu()
+        fused_s.append(time.perf_counter() - t0)
+    print(f"check no host synchronisation: {len(idx)} train steps of a fused "
+          f"epoch ran under torch.cuda.set_sync_debug_mode('error') x3 and "
+          f"raised nothing; the last returned to the host after "
+          f"{host_s:.4f} s [{card}]")
+    ustate, utr = hist[False]["final_state"], trainers[False]
+    step_s = []
+    for e in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        utr._per_step_epoch(ustate, TRAIN_EPOCHS + e)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    print(f"time: train epoch ({len(idx)} steps of batch {B}), fused "
+          f"(upload, steps, one readback): {statistics.median(fused_s):.4f} "
+          f"s median of 3 {[round(t, 4) for t in fused_s]}; per step "
+          f"(prefetch, every step read back): "
+          f"{statistics.median(step_s):.4f} s median of 3 "
+          f"{[round(t, 4) for t in step_s]} [{card}]")
+
+    # Probe time, and the train step: CUDA events, medians.
+    probe_s = []
+    for seed in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state_consistency(model, tcfg.final_temperature, seed=seed)
+        tr.state_separation(model, tcfg.final_temperature)
+        probe_s.append(time.perf_counter() - t0)
+    print(f"time: probes (state_consistency + state_separation, {n_val} val "
+          f"frames in {chunks} chunk(s) of 128 through both kernels): "
+          f"{statistics.median(probe_s):.4f} s median of 3 [{card}]")
+    phase_train_breakdown(card, tr, state, idx, mcfg, B * 2 * S)
+
+    # Check 6: one epoch of percep-flagship on SD-shaped latents.
+    prng = np.random.default_rng(12)
+    emb = {f"{i:010d}.jpg": (prng.normal(size=(1, 4, 88, 160))
+                             + 0.5 * s).astype(np.float32)
+           for i, s in zip(ids, states)}
+    pcfg = rbvae_variant("percep", LATENT, lstm_residual=True,
+                         compute_dtype="bfloat16", pallas_sampler=True)
+    for fn in counters.values():
+        fn.launches = 0
+    ptr = Trainer(pcfg, TrainConfig(**PERCEP_TRAIN), EmbeddingStore(emb),
+                  splits, meta.flags, device="cuda")
+    t0 = time.perf_counter()
+    phist = ptr.train(num_epochs=1)
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - t0
+    p_launches = {k: fn.launches for k, fn in counters.items()}
+    ptl, pvl = phist["train_losses"][0], phist["val_losses"][0]
+    print(f"train path, percep-flagship: 1 epoch (batch "
+          f"{PERCEP_TRAIN['batch_size']}, {ptr.train_batcher.num_batches()} "
+          f"steps, [1,4,88,160] latents, 4-layer residual LSTM) in "
+          f"{p_wall:.2f} s with its warm-up; total_loss "
+          f"{ptl['total_loss']:.4f}, combined_score "
+          f"{pvl['combined_score']:.4f}; probe launches {p_launches} [{card}]")
+    require(all(np.isfinite(v) for v in list(ptl.values())
+                + list(pvl.values())), "percep-flagship: non-finite metric")
+    require(p_launches["lstm_binary_concrete"] == 2 * chunks,
+            "percep-flagship probes did not run lstm_binary_concrete")
+    print(f"train path: all checks passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "percep_launches": p_launches}
+
+
+def phase_train_breakdown(card: str, tr, state, idx, mcfg,
+                          frames: int) -> None:
+    """One flagship step's time, its forward (the objective), backward and
+    Adam parts, CUDA events around each over steps of the epoch ``idx``;
+    peak memory; the step's FLOPs and its bound at the bf16 peak."""
+    from svtpu_torch import batch_seed
+    from svtpu_torch.training.schedules import temperature_schedule
+    from svtpu_torch.training.trainer import Noise, pair_objective
+
+    cfg = tr.cfg
+    n = len(idx)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(12):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr._train_step(state, idx[i % n])
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in times[2:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    parts = []
+    for i in range(10):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        state.step += 1
+        temp = max(temperature_schedule(
+            state.step, cfg.init_temperature, cfg.final_temperature,
+            cfg.anneal_rate, cfg.num_steps_to_update), tr._temp_floor)
+        noise = Noise(batch_seed(tr._base_seed, state.step), tr.device)
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        total, _ = pair_objective(state.model, cfg, tr._batch(idx[i % n]),
+                                  temp, False, noise, deterministic=False)
+        ev[1].record()
+        total.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        parts.append(ev)
+    torch.cuda.synchronize()
+    fwd, bwd, adam = (statistics.median(e[j].elapsed_time(e[j + 1])
+                                        for e in parts[2:]) for j in range(3))
+    flops = train_step_flops(mcfg, frames)
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    print(f"time: train step (flagship, batch [{frames // 10},2,5,256,256,3], "
+          f"bf16, CUDA events, median of 10 after 2): {step_ms:.3f} ms, "
+          f"{frames / step_ms * 1e3:.1f} train frames/s ({frames} frames a "
+          f"step through the model); forward {fwd:.3f} ms, backward "
+          f"{bwd:.3f} ms, Adam {adam:.3f} ms; peak memory {peak:.2f} GiB; "
+          f"{flops / 1e12:.3f} TFLOP a step (forward + backward, from the "
+          f"layer shapes), bound {bound_ms:.3f} ms at 989 TFLOP/s, "
+          f"{bound_ms / step_ms:.1%} of it, {flops / step_ms / 1e9:.1f} "
+          f"TFLOP/s [{card}]")
+
+
 def attention_library(q, k, v):
     """One PyTorch call computing the same attention, and its backend:
     ``F.scaled_dot_product_attention`` on ``[B, 1, N, D]`` with the first
@@ -1057,7 +1473,8 @@ def instance(symbol: str) -> str:
 
 
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
-                       percep: dict, simple: dict, wide: dict) -> list:
+                       percep: dict, simple: dict, wide: dict,
+                       train: dict) -> list:
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
@@ -1087,7 +1504,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         name="fused_conv01", route="cuda",
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
-        launches=sum(d["launches"]["fused_conv01"] for d in (main, wide)),
+        launches=sum(d["launches"]["fused_conv01"]
+                     for d in (main, wide, train)),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
@@ -1099,7 +1517,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"{max(bound.values()):.3f} ms ({max(bound, key=bound.get)}), "
           f"launches per encode {main['per_encode']['fused_conv01']:.0f} "
           f"(pixel {main['launches']['fused_conv01']}, wide latent "
-          f"{wide['launches']['fused_conv01']}) [{card}]")
+          f"{wide['launches']['fused_conv01']}, train probes "
+          f"{train['launches']['fused_conv01']}) [{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
@@ -1164,7 +1583,9 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     usage = {fn: r for fn, r in build.items()
              if "lstm_binary_concrete_kernel" in fn}
     launches = {k: d["launches"]["lstm_binary_concrete"] for k, d in
-                (("pixel", main), ("percep", percep))}
+                (("pixel", main), ("percep", percep), ("train", train))}
+    launches["percep train"] = \
+        train["percep_launches"]["lstm_binary_concrete"]
     rows.append(dict(
         name="lstm_binary_concrete", route="cuda",
         source="svtpu_torch/csrc/lstm_binary_concrete.cu",
@@ -1226,6 +1647,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
 
 
 def main() -> None:
+    # Deterministic cuBLAS for the training check; read when cuBLAS starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1243,8 +1666,9 @@ def main() -> None:
     simple = phase_simple_path(card)
     wide = phase_wide_path(card)
     percep = phase_percep_path(card)
+    train = phase_train_path(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
-                              wide)
+                              wide, train)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "

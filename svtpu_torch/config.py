@@ -1,6 +1,7 @@
-"""Configurations — the port's own copy of ``svtpu.config``'s
-``RBVAEConfig``, ``rbvae_variant`` (``svtpu/config.py:114-254``) and
-``PerceptualConfig`` (``:464-479``).
+"""Configurations — the port's own copy of ``svtpu.config``: ``VideoMeta``,
+``parse_transition_flags`` and ``BUILTIN_VIDEOS`` (``svtpu/config.py:23-106``),
+``RBVAEConfig`` and ``rbvae_variant`` (``:114-254``), ``TrainConfig``
+(``:262-461``) and ``PerceptualConfig`` (``:464-479``).
 
 Field names and defaults are the reference's, so one config means the same
 model in both packages. ``pallas_trunk`` / ``pallas_sampler`` keep their
@@ -11,9 +12,86 @@ names: here they route ``encode`` through the hand-written CUDA kernels
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import re
+from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoMeta:
+    """Per-video state-transition metadata: ``flags`` are the frame indices
+    at which a state transition occurs, ``last_frame`` the final frame
+    index (inclusive), ``grey_out`` the margin of frames dropped on both
+    sides of every transition."""
+
+    name: str
+    flags: Tuple[int, ...]
+    last_frame: int
+    grey_out: int = 10
+
+    @property
+    def num_states(self) -> int:
+        return len(self.flags) + 1
+
+    def state_segments(self) -> Tuple[Tuple[int, int], ...]:
+        """Half-open ``(start, end)`` per state, transition margins
+        removed."""
+        segs = []
+        for i, flag in enumerate(self.flags):
+            if i == 0:
+                segs.append((0, flag - self.grey_out))
+            else:
+                segs.append((self.flags[i - 1] + self.grey_out + 1,
+                             flag - self.grey_out))
+        segs.append((self.flags[-1] + self.grey_out + 1, self.last_frame + 1))
+        return tuple(segs)
+
+
+def parse_transition_flags(path: str | Path) -> dict[str, VideoMeta]:
+    """Parse a ``transition_flags.txt``-style metadata file::
+
+        video_name:
+        [f0, f1, ...], last_frame = N, grey_out = M
+    """
+    metas: dict[str, VideoMeta] = {}
+    name = None
+    for line in Path(path).read_text().splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.endswith(":"):
+            name = line[:-1].strip()
+            continue
+        m = re.match(
+            r"\[(?P<flags>[\d,\s]*)\]\s*,\s*last_frame\s*=\s*(?P<last>\d+)"
+            r"\s*,\s*grey_out\s*=\s*(?P<grey>\d+)", line)
+        if m and name is not None:
+            flags = tuple(
+                int(x) for x in m.group("flags").split(",") if x.strip())
+            metas[name] = VideoMeta(
+                name=name, flags=flags, last_frame=int(m.group("last")),
+                grey_out=int(m.group("grey")))
+            name = None
+    return metas
+
+
+# The four videos the reference ships metadata for.
+BUILTIN_VIDEOS = {
+    "kid_playing_with_blocks": VideoMeta(
+        "kid_playing_with_blocks",
+        (152, 315, 486, 607, 734, 871, 1153, 1343), 1425, 10),
+    "chinese_chess": VideoMeta(
+        "chinese_chess", (74, 206, 282, 389), 479, 10),
+    "assembly_C10118": VideoMeta(
+        "assembly_C10118",
+        (2836, 4132, 5114, 5640, 6922, 8390, 11518, 11962), 12297, 20),
+    "ikea_asm_table": VideoMeta(
+        "ikea_asm_table",
+        (157, 205, 441, 494, 557, 887, 909, 1010, 1048, 1315, 1388, 1438,
+         1702, 1847, 2096, 2174), 2469, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +126,8 @@ class RBVAEConfig:
     decoder_sigmoid: bool = True
     # Compute dtype for conv/matmul; parameters are always float32.
     compute_dtype: str = "float32"
-    # Accepted for config compatibility; the port has no training slice yet.
+    # Recompute the conv encoder's and decoder's activations in the backward
+    # pass (torch.utils.checkpoint) instead of keeping them.
     remat: bool = False
     # Inference ``encode`` through the hand-written sampler kernels (fused
     # with the encoder LSTM where the variant binarizes after it).
@@ -108,6 +187,79 @@ def rbvae_variant(name: str, latent_dim: int = 32, *,
     cfg.update(base)
     cfg.update(overrides)
     return RBVAEConfig(**cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer hyperparameters; the fields and defaults of
+    ``svtpu.config.TrainConfig``, whose comments give each one's reason."""
+
+    batch_size: int = 32
+    num_epochs: int = 50
+    learning_rate: float = 1e-3
+    init_temperature: float = 1.0
+    final_temperature: float = 0.5
+    anneal_rate: float = 1e-3
+    num_steps_to_update: int = 100
+    bernoulli_p: float = 0.1
+    noise_ratio: float = 0.1
+    # Noise ratio of the metric/selection encodes; None = noise_ratio.
+    eval_noise_ratio: Optional[float] = None
+    margin: float = 0.2
+    alpha: float = 1.0           # contrastive or triplet coefficient
+    beta_kl: float = 1.0
+    test_pct: float = 0.1
+    val_pct: float = 0.1
+    seed: int = 0
+    # "contrastive" | "triplet" | "simple".
+    objective: str = "contrastive"
+    # Triplet distance: "l2" or "js" (Bernoulli JS on z probabilities).
+    triplet_distance: str = "l2"
+    # Weight of the anchor<->positive pull in p-space (triplet); 0 = off.
+    triplet_pull: float = 0.0
+    # Weight of the absolute (anchor, negative) push in p-space; 0 = off.
+    triplet_push: float = 0.0
+    # What the contrastive/triplet losses act on: "h", "z" or "p".
+    contrast_on: str = "h"
+    # Also apply the margins to context-free (T=1) encodes of the frames.
+    contextfree_contrast: bool = False
+    # "consistency" | "val_loss" | "separation" | "combined".
+    select_by: str = "consistency"
+    # Separation (bits) at which "combined" stops rewarding separation.
+    sep_target: float = 3.0
+    # Reduction of the adjacent-pair Hamming vector: "mean" or "min".
+    sep_aggregate: str = "mean"
+    log_dir: Optional[str] = None
+    # Device layout; the port trains on one device and raises on a "model"
+    # axis or a mesh of more than one device.
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+    # Keep the whole store on the device and feed steps row indices:
+    # "auto" (when it is <= 2 GiB), True, False.
+    stage_frames: object = "auto"
+    # Run a staged epoch with its metric sums on the device and one
+    # readback (the per-step loop reads every step's metrics back).
+    fused_epoch: bool = True
+    # "linear" scales lr with a batch rounded up to the data axis.
+    lr_scaling: str = "linear"
+    # Save ``latest`` every N epochs; 0 disables.
+    latest_every: int = 25
+    # Run the validation block every N epochs (final and restart-check
+    # epochs always).
+    val_every: int = 1
+    # Auto-restart on basin failure; 0 disables.
+    restart_check_epoch: int = 0
+    restart_min_sep: float = 3.0
+    max_restarts: int = 3
+    # Reduction the basin check compares: "mean" or "min".
+    restart_on: str = "mean"
+    # What a restart re-rolls: "init" or "stream" (also pairs and noise).
+    restart_reroll: str = "init"
+    # Keep the context-free |h|/T ratio at or below this band by raising
+    # the temperature floor; 0 disables.
+    trap_guard_ratio: float = 0.0
+    # L1 coefficient on the binarization logits h; 0 disables.
+    l1_logits: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)

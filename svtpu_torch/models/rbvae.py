@@ -20,9 +20,19 @@ alone) where it binarizes before it (simple) or after a wider LSTM, which
 runs as plain ops. The kernels' noise seed is drawn from the generator on its own
 device and stays there, so the host never waits for it.
 
+``forward`` with ``deterministic=False`` is the training pass: dropout
+between the encoder's convs and between the decoder's transposed convs, as
+in the reference, on the plain trunk and sampler (the kernels have no
+backward, as in the JAX package). ``cfg.remat`` recomputes the conv
+encoder's and decoder's activations in the backward pass
+(``torch.utils.checkpoint``).
+
 Randomness is explicit: Binary-Concrete noise comes from a
-``torch.Generator`` (or an injected uniform ``u``), and the initial weights
-from the generator given to the constructor.
+``torch.Generator`` (or an injected uniform ``u``), dropout masks from
+generators seeded by a host int (``dropout_seed``) inside the conv stacks,
+so that a recompute under ``remat`` draws the same masks (checkpointing
+restores only the global generators' states), and the initial weights from
+the generator given to the constructor.
 """
 from __future__ import annotations
 
@@ -31,8 +41,9 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from svtpu_torch import resolve_device
+from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig
 from svtpu_torch.ops.binarize import binary_concrete
 from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
@@ -50,6 +61,27 @@ class RBVAEOutput(NamedTuple):
     #                           z for the simple variant)
     z_seq: torch.Tensor       # [B, T, L] binarized latents
     logits: torch.Tensor      # [B, T, L] conv-encoder logits
+
+
+def _dropout(h: torch.Tensor, rate: float,
+             gen: torch.Generator) -> torch.Tensor:
+    """Keep each value with probability ``1 - rate`` and scale the kept
+    ones by ``1 / (1 - rate)``, as flax's Dropout does; the mask comes from
+    ``gen`` (``F.dropout`` takes no generator)."""
+    keep = 1.0 - rate
+    mask = torch.rand(h.shape, generator=gen, device=h.device) < keep
+    return torch.where(mask, h / keep, 0.0)
+
+
+def _dropout_generator(cfg: RBVAEConfig, dropout_seed: Optional[int],
+                       stage: int, device):
+    """The generator of one conv stack's masks (stage 0 the encoder, 1 the
+    decoder), or ``None`` for no dropout."""
+    if dropout_seed is None or cfg.conv_dropout == 0:
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(batch_seed(dropout_seed, stage))
+    return gen
 
 
 def _stack(cfg: RBVAEConfig, convs, final_relu: bool) -> nn.Sequential:
@@ -80,19 +112,25 @@ class ConvEncoder(nn.Module):
     def convs(self) -> list[Conv2dTorch]:
         return [m for m in self.conv if isinstance(m, Conv2dTorch)]
 
-    def forward(self, x: torch.Tensor, trunk: str = "torch") -> torch.Tensor:
-        """``x [N, H, W, C]`` → logits ``[N, L]`` (inference: no dropout).
+    def forward(self, x: torch.Tensor, trunk: str = "torch",
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """``x [N, H, W, C]`` → logits ``[N, L]``.
 
         ``trunk``: "torch" (library convs) or "kernel" (the fused conv0+conv1
         kernel, then conv2 as a library conv; 256x256 contrastive/triplet
-        geometry only).
+        geometry only; inference). ``dropout_seed``: dropout between the
+        convs, masks drawn from a generator seeded by it; ``None`` for none.
         """
         c = self.cfg
         dt = c.torch_dtype
         convs = self.convs()
         n = len(convs)
         h = x.to(dt)
+        gen = _dropout_generator(c, dropout_seed, 0, x.device)
         if trunk == "kernel":
+            if gen is not None:
+                raise ValueError("the trunk kernel is inference-only: no "
+                                 "dropout")
             if not (c.conv_features == (64, 64, 64) and c.in_channels == 3
                     and (c.conv_kernel, c.conv_stride, c.conv_padding)
                     == (3, 2, 1) and tuple(h.shape[1:3]) == (256, 256)):
@@ -109,6 +147,8 @@ class ConvEncoder(nn.Module):
                 h = conv(h, dt)
                 if i < n - 1 or c.conv_final_relu:
                     h = h.relu()
+                if i < n - 1 and gen is not None:
+                    h = _dropout(h, c.conv_dropout, gen)
         else:
             raise ValueError(f"unknown trunk {trunk!r}")
         # Flatten in torch's channel-major order, which the fc weight uses.
@@ -130,11 +170,14 @@ class ConvDecoder(nn.Module):
             cfg, [ConvTranspose2dTorch(chans[i], chans[i + 1], k, s, p, op)
                   for i in range(len(feats))], False)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """``z [N, L]`` → ``[N, H, W, C]`` (inference: no dropout)."""
+    def forward(self, z: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """``z [N, L]`` → ``[N, H, W, C]``; ``dropout_seed`` as the
+        encoder's."""
         c = self.cfg
         dt = c.torch_dtype
         eh, ew = c.encoded_hw
+        gen = _dropout_generator(c, dropout_seed, 1, z.device)
         h = self.fc(z, dt).reshape(z.shape[0], -1, eh, ew)
         deconvs = [m for m in self.deconv
                    if isinstance(m, ConvTranspose2dTorch)]
@@ -142,6 +185,8 @@ class ConvDecoder(nn.Module):
             h = m(h, dt)
             if i < len(deconvs) - 1:
                 h = h.relu()
+                if gen is not None:
+                    h = _dropout(h, c.conv_dropout, gen)
         if c.decoder_sigmoid:
             h = torch.sigmoid(h)
         return h.permute(0, 2, 3, 1)
@@ -194,10 +239,19 @@ class Seq2SeqBinaryVAE(nn.Module):
                 p.copy_(torch.rand(p.shape, generator=gen) * (2 * bound)
                         - bound)
 
+    def _cnn(self, stack: nn.Module, *args):
+        """Run a conv stack, through ``torch.utils.checkpoint`` when
+        ``cfg.remat`` asks for it and a backward may follow."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(stack, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return stack(*args)
+
     def _encode_to_latent(self, x, temperature, hard, noise_scale,
                           generator, u, sampler: str = "torch",
-                          trunk: str = "torch"):
-        """Conv trunk + encoder LSTM + binarization (inference).
+                          trunk: str = "torch",
+                          dropout_seed: Optional[int] = None):
+        """Conv trunk + encoder LSTM + binarization.
 
         ``sampler``: "torch" (the plain op) or "kernel" (the sampler
         kernels; their noise is keyed by a seed drawn from ``generator``).
@@ -206,6 +260,7 @@ class Seq2SeqBinaryVAE(nn.Module):
         as one kernel, and its ``h_seq`` is ``None``; a wider one runs the
         plain LSTM, then the sampler kernel.
         ``trunk``: "torch" or "kernel" (the fused conv0+conv1 kernel).
+        ``dropout_seed``: dropout in the conv trunk (training), or ``None``.
         """
         c = self.cfg
         if sampler not in ("torch", "kernel"):
@@ -237,7 +292,8 @@ class Seq2SeqBinaryVAE(nn.Module):
 
         B, T = x.shape[:2]
         flat = x.reshape((B * T,) + tuple(x.shape[2:]))
-        logits = self.encoder_cnn(flat, trunk).reshape(B, T, c.latent_dim)
+        logits = self._cnn(self.encoder_cnn, flat, trunk, dropout_seed) \
+            .reshape(B, T, c.latent_dim)
         if c.binarize == "pre_rnn":
             # simple variant: binarize conv logits, then run the LSTMs.
             z_seq = binarize(logits)
@@ -254,31 +310,38 @@ class Seq2SeqBinaryVAE(nn.Module):
             raise ValueError("noise needs an explicit torch.Generator (or an "
                              "injected u); pass deterministic=True for none")
 
+    def _require_dropout_seed(self, deterministic, dropout_seed):
+        if (not deterministic and self.cfg.conv_dropout > 0
+                and dropout_seed is None):
+            raise ValueError("dropout needs a dropout_seed (an int); pass "
+                             "deterministic=True for none")
+        return None if deterministic else dropout_seed
+
     def forward(self, x: torch.Tensor, temperature=1.0, hard: bool = False,
                 noise_ratio: float = 0.1, *, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
-                u: Optional[torch.Tensor] = None) -> RBVAEOutput:
-        """Full autoencoding pass (inference).
+                u: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> RBVAEOutput:
+        """Full autoencoding pass, on the plain trunk and sampler.
 
-        ``deterministic=False`` means dropout and noise, as in the reference;
-        dropout in training mode comes with the training slice and raises
-        here for variants that have it. Noise is drawn from ``generator`` or
-        taken from ``u`` (uniform [0, 1), shaped like the binarized tensor)
-        whenever either is given.
+        ``deterministic=False`` means dropout and noise, as in the
+        reference: dropout masks come from ``dropout_seed`` (a host int,
+        needed when the variant has dropout). Noise is drawn from
+        ``generator`` or taken from ``u`` (uniform [0, 1), shaped like the
+        binarized tensor) whenever either is given.
         """
         c = self.cfg
-        if not deterministic and c.conv_dropout > 0:
-            raise NotImplementedError(
-                "dropout in training mode is not ported yet; pass "
-                "deterministic=True (with a generator for noise)")
         self._require_noise_source(deterministic, generator, u)
+        dropout_seed = self._require_dropout_seed(deterministic, dropout_seed)
         B, T = x.shape[:2]
         noise_scale = noise_ratio if c.has_noise_ratio else 1.0
         logits, h_seq, z_seq = self._encode_to_latent(
-            x, temperature, hard, noise_scale, generator, u)
+            x, temperature, hard, noise_scale, generator, u,
+            dropout_seed=dropout_seed)
         d_in = h_seq if c.binarize == "pre_rnn" else z_seq
         d_seq = self.decoder_rnn(d_in)
-        x_recon = self.decoder_cnn(d_seq.reshape(B * T, c.latent_dim))
+        x_recon = self._cnn(self.decoder_cnn,
+                            d_seq.reshape(B * T, c.latent_dim), dropout_seed)
         x_recon = x_recon.reshape((B, T) + tuple(x_recon.shape[1:]))
         return RBVAEOutput(x_recon=x_recon, h_seq=h_seq, z_seq=z_seq,
                            logits=logits)

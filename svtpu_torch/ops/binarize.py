@@ -27,8 +27,12 @@ def _uniform(shape, like: torch.Tensor,
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     """A Python or tensor scalar in ``like``'s dtype (the reference casts
-    temperature and noise scale to the logits' dtype before using them)."""
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    temperature and noise scale to the logits' dtype before using them). A
+    Python number is filled in on the device: a copy from the host would
+    make the host wait for the card."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def logistic_noise(u: torch.Tensor, eps: float) -> torch.Tensor:

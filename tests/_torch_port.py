@@ -45,3 +45,31 @@ def seeded_ae_params(jcfg, seed: int = 0):
         return (base + rng.uniform(-0.1, 0.1, leaf.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+class ArrayStore:
+    """An in-memory frame store with ``FrameStore``'s interface (``array``,
+    ``indices``, ``rows``, ``gather``, ``item_shape``, ``dtype``): row ``i``
+    holds frame id ``indices[i]``."""
+
+    def __init__(self, array, indices=None):
+        self.array = array
+        self.indices = np.arange(len(array)) if indices is None \
+            else np.asarray(indices)
+        self._row = {int(f): r for r, f in enumerate(self.indices)}
+
+    @property
+    def item_shape(self):
+        return self.array.shape[1:]
+
+    @property
+    def dtype(self):
+        return self.array.dtype
+
+    def rows(self, frame_indices):
+        flat = np.asarray(frame_indices).reshape(-1)
+        return np.asarray([self._row[int(i)] for i in flat],
+                          np.int64).reshape(np.shape(frame_indices))
+
+    def gather(self, frame_indices):
+        return self.array[self.rows(frame_indices)]

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from svtpu_torch.config import rbvae_variant
+from svtpu_torch.config import TrainConfig, rbvae_variant
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+from svtpu_torch.training.trainer import (Noise, fold_lstm_biases,
+                                          pair_objective)
 
 
 def _require_card():
@@ -46,3 +48,59 @@ def test_cpu_model_with_a_card_generator_reads_the_drawn_seed(case):
         t = logits if cfg.binarize == "pre_rnn" else model.encoder_rnn(logits)
         ref = binary_concrete_fused(t, seed, 0.5, scale, True, cfg.bc_eps)
     assert torch.equal(got, ref)
+
+
+def _train_step(dtype: str, dev: str):
+    """The flagship objective's loss and gradients at full width (latent 25,
+    256x256, dropout off) in compute dtype ``dtype`` on ``dev``, from seeded
+    parameters, frames and uniforms."""
+    cfg = rbvae_variant("contrastive", 25, conv_dropout=0.0,
+                        compute_dtype=dtype)
+    tcfg = TrainConfig(contrast_on="p", contextfree_contrast=True,
+                       l1_logits=0.1, margin=3.5, noise_ratio=0.3,
+                       beta_kl=0.2, alpha=4.0)
+    model = Seq2SeqBinaryVAE(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(4))
+    model.to(dev)
+    fold_lstm_biases(model)
+    B, S = 2, 5
+    rng = np.random.default_rng(5)
+    batch = torch.from_numpy(rng.integers(0, 256, (B, 2, S, 256, 256, 3),
+                                          np.uint8))
+    u = {0: rng.random((2 * B, S, 25), np.float32),
+         1: rng.random((2 * B * S, 1, 25), np.float32)}
+    total, _ = pair_objective(
+        model, tcfg, batch.to(dev), 0.9, False,
+        Noise(None, dev, {k: torch.from_numpy(v).to(dev)
+                          for k, v in u.items()}), deterministic=False)
+    total.backward()
+    return float(total.detach()), {n: p.grad.cpu() for n, p in
+                                   model.named_parameters()
+                                   if p.grad is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_train_step_on_the_card_matches_the_cpu(dtype):
+    """With TF32 off, the card's loss within 1e-4 relative of the CPU's; in
+    float64 every gradient within 1e-3 of that tensor's largest |grad|. In
+    float32 a ReLU input that rounds to the other side of 0 on one device
+    drops that element's gradient, and at full width some do, so the
+    float32 gradients are held by chip_smoke.py's printout, not here."""
+    _require_card()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss_cpu, g_cpu = _train_step(dtype, "cpu")
+        loss_card, g_card = _train_step(dtype, "cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    assert set(g_card) == set(g_cpu) and len(g_cpu) > 10
+    if dtype == "float64":
+        for n, g in g_cpu.items():
+            err = float((g_card[n] - g).abs().max())
+            assert err <= 1e-3 * float(g.abs().max()), (n, err)

@@ -6,7 +6,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from svtpu_torch.config import PerceptualConfig, rbvae_variant
+from svtpu_torch.config import PerceptualConfig, TrainConfig, rbvae_variant
+from svtpu_torch.data.segments import split_segments
 from svtpu_torch.models.autoencoder_kl import AutoencoderKL
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops.attention import flash_attention
@@ -17,6 +18,9 @@ from svtpu_torch.ops.lstm import LSTM
 from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
 from svtpu_torch.perceptual.embed import PerceptualEncoder
 from svtpu_torch.pipeline import VideoSymbolPipeline
+from svtpu_torch.training.trainer import Trainer
+
+from _torch_port import ArrayStore
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "svtpu")
@@ -47,7 +51,11 @@ def test_port_imports_no_jax_and_nothing_of_svtpu():
             "svtpu_torch/models/autoencoder_kl.py",
             "svtpu_torch/perceptual/convert.py",
             "svtpu_torch/perceptual/embed.py",
-            "svtpu_torch/perceptual/interpolate.py"} <= names
+            "svtpu_torch/perceptual/interpolate.py",
+            "svtpu_torch/training/trainer.py",
+            "svtpu_torch/training/checkpoints.py",
+            "svtpu_torch/ops/losses.py",
+            "svtpu_torch/data/datasets.py"} <= names
     assert len(files) > 15 and all(f.exists() for f in files)
     bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
            for mod in _imported_roots(f) if mod in FORBIDDEN]
@@ -64,6 +72,17 @@ def test_no_card_and_no_device_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VideoSymbolPipeline(cfg, {})
     Seq2SeqBinaryVAE(cfg, device="cpu")          # asked for: fine
+
+
+def test_trainer_with_no_card_and_no_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = rbvae_variant("contrastive", 8, input_hw=(32, 32))
+    store = ArrayStore(torch.zeros(20, 32, 32, 3, dtype=torch.uint8).numpy())
+    splits = split_segments(((0, 10), (10, 20)), 0.2, 0.2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainConfig(batch_size=4), store, splits, (10,))
+    Trainer(cfg, TrainConfig(batch_size=4), store, splits, (10,),
+            device="cpu")                        # asked for: fine
 
 
 def test_perceptual_entry_points_need_a_card_or_cpu(monkeypatch):
