@@ -40,7 +40,16 @@ on and their launches counted:
     ``torch.cuda.set_sync_debug_mode("error")``; one epoch of the
     ``percep-flagship`` preset on seeded SD-shaped latents; and the train
     step's time, its forward/backward/Adam split, peak memory, FLOP count
-    and bound.
+    and bound;
+  * the evaluation path: the flagship read back through
+    ``RBVAEBundle.from_checkpoint`` and evaluated by
+    ``evaluate_consistency``, ``evaluate_hamming``,
+    ``tradeoff.evaluate_checkpoint`` and ``codes_from_torch_checkpoint``
+    (``fused_conv01``, ``lstm_binary_concrete``), the percep model's
+    consistency through the SD first stage (``flash_attention``) and on
+    perturbed latents, and the simple variant's encode (the standalone
+    ``binary_concrete``), launches counted exactly; codes against the
+    plain route, and per-trial times.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -1082,6 +1091,15 @@ def train_video():
     return meta, splits, ids, states
 
 
+def video_frames(meta, states) -> np.ndarray:
+    """``train_video()``'s frames as uint8 256x256 RGB, seeded: a base
+    colour per state plus noise."""
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 216, (meta.num_states, 1, 1, 3), np.uint8)
+    return base[states] + rng.integers(0, 40, (len(states), 256, 256, 3),
+                                       np.uint8)
+
+
 def train_step_flops(cfg, frames: int) -> float:
     """FLOPs of one flagship train step, from the layer shapes: ``frames``
     through the encoder and the decoder, the same frames through the
@@ -1102,12 +1120,15 @@ def train_step_flops(cfg, frames: int) -> float:
 
 
 def card_cpu_step(mcfg, tcfg, batch: np.ndarray, seed: int,
-                  dtype: str) -> dict:
+                  dtype: str, params=None) -> dict:
     """One train step's loss and gradients on the card and on the CPU, in
     compute dtype ``dtype``, from the same parameters and injected uniforms
-    (dropout off, TF32 off as ``main`` sets)."""
+    (dropout off, TF32 off as ``main`` sets). The parameters: a fresh
+    model's drawn from ``seed``, or ``params``, a ``svtpu`` tree (the
+    trained flagship's)."""
     import dataclasses
 
+    from svtpu_torch.models.convert import from_jax_params
     from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
     from svtpu_torch.training.trainer import (Noise, fold_lstm_biases,
                                               pair_objective)
@@ -1115,9 +1136,12 @@ def card_cpu_step(mcfg, tcfg, batch: np.ndarray, seed: int,
     cfg = dataclasses.replace(mcfg, compute_dtype=dtype,
                               conv_dropout=0.0, pallas_trunk=False,
                               pallas_sampler=False)
-    sd = Seq2SeqBinaryVAE(cfg, device="cpu",
-                          generator=torch.Generator().manual_seed(seed)
-                          ).state_dict()
+    if params is None:
+        sd = Seq2SeqBinaryVAE(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(seed)
+                              ).state_dict()
+    else:
+        sd = from_jax_params(params, cfg)
     B, _, S = batch.shape[:3]
     rng = np.random.default_rng(seed)
     u = {0: rng.random((2 * B, S, cfg.latent_dim), np.float32),
@@ -1145,6 +1169,7 @@ def phase_train_path(card: str) -> dict:
 
     from svtpu_torch.config import TrainConfig, rbvae_variant
     from svtpu_torch.data.datasets import EmbeddingStore
+    from svtpu_torch.models.convert import load_params_npz
     from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
@@ -1153,11 +1178,7 @@ def phase_train_path(card: str) -> dict:
 
     t_phase = time.perf_counter()
     meta, splits, ids, states = train_video()
-    rng = np.random.default_rng(11)
-    base = rng.integers(0, 216, (meta.num_states, 1, 1, 3), np.uint8)
-    frames = base[states] + rng.integers(0, 40, (len(ids), 256, 256, 3),
-                                         np.uint8)
-    store = MemoryStore(frames, ids)
+    store = MemoryStore(video_frames(meta, states), ids)
     mcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16",
                          pallas_trunk=True, pallas_sampler=True)
     n_val = len(splits.flat("val"))
@@ -1169,33 +1190,43 @@ def phase_train_path(card: str) -> dict:
           f"{len(splits.flat('train'))} val {n_val} frames; made in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
-    # Check 2: one step, card against CPU. In f32 the loss is held to
-    # 1e-4; its gradients are printed but held in f64: a ReLU whose input
-    # rounds to the other side of 0 on one device drops that element's
-    # whole gradient, and at full width some do (PERF.md §6).
+    # Check 2: one step, card against CPU, the loss held to 1e-4 and each
+    # gradient tensor to 1e-3 of its largest |grad|: from the trained
+    # flagship's weights in f32; from a fresh model's in f64, its f32
+    # gradients printed. A ReLU whose input rounds to the other side of 0
+    # on one device drops that element's whole gradient, and at the init's
+    # tiny decoder gradients that shows in f32 (PERF.md §6).
     tcfg = TrainConfig(**FLAGSHIP_TRAIN)
     trainer = Trainer(mcfg, tcfg, store, splits, meta.flags, device="cuda")
     rows = next(iter(trainer.train_batcher.epoch_indices(0)))[:2]
-    for dtype in ("float32", "float64"):
-        steps = card_cpu_step(mcfg, tcfg, store.array[rows], 7, dtype)
+    trained = load_params_npz(ROOT / "results" / "p_hardened_params.npz")
+    for dtype, params in (("float32", None), ("float64", None),
+                          ("float32", trained)):
+        steps = card_cpu_step(mcfg, tcfg, store.array[rows], 7, dtype,
+                              params)
         (loss_cpu, g_cpu), (loss_card, g_card) = steps["cpu"], steps["cuda"]
         loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
         errs = {n: float((g_card[n] - g).abs().max()
                          / g.abs().max().clamp_min(1e-30))
                 for n, g in g_cpu.items()}
         worst = max(errs, key=errs.get)
-        print(f"check train step {dtype}, card vs CPU ([2,2,{S},256,256,3], "
-              f"same parameters and uniforms, dropout off): loss "
-              f"{loss_card:.8f} vs {loss_cpu:.8f}, rel err {loss_rel:.2e} "
-              f"(limit 1e-4); worst gradient err / its tensor's max |grad| "
-              f"{errs[worst]:.2e} ({worst}) over {len(g_cpu)} tensors, "
-              f"{sum(e > 1e-3 for e in errs.values())} above 1e-3 (limit "
-              f"1e-3 {'held' if dtype == 'float64' else 'printed'})")
+        over = {n: f"{e:.2e}" for n, e in errs.items() if e > 1e-3}
+        held = dtype == "float64" or params is not None
+        print(f"check train step {dtype} from "
+              f"{'the trained weights' if params else 'a fresh model'}, "
+              f"card vs CPU ([2,2,{S},256,256,3], same parameters and "
+              f"uniforms, dropout off): loss {loss_card:.8f} vs "
+              f"{loss_cpu:.8f}, rel err {loss_rel:.2e} (limit 1e-4); worst "
+              f"gradient err / its tensor's max |grad| {errs[worst]:.2e} "
+              f"({worst}) over {len(g_cpu)} tensors; above 1e-3: "
+              f"{over or 'none'} (limit 1e-3 "
+              f"{'held' if held else 'printed'})")
         require(loss_rel <= 1e-4, f"train step {dtype}: card loss disagrees "
                 "with the CPU")
         require(set(g_card) == set(g_cpu), "train step: gradient sets")
-    require(errs[worst] <= 1e-3, "train step float64: card gradients "
-            "disagree with the CPU")
+        if held:
+            require(errs[worst] <= 1e-3, f"train step {dtype}: card "
+                    "gradients disagree with the CPU")
 
     # The main path: 3 fused epochs, then the same 3 one step at a time,
     # deterministic algorithms on, the probes' kernel launches counted.
@@ -1423,6 +1454,255 @@ def phase_train_breakdown(card: str, tr, state, idx, mcfg,
           f"TFLOP/s [{card}]")
 
 
+def chunks(n: int, chunk: int = 128) -> int:
+    """Encode steps (``RBVAEBundle.encode``'s chunks) for ``n`` frames."""
+    return -(-n // chunk)
+
+
+def phase_eval_path(card: str) -> dict:
+    """The evaluation slice on the card, through its entry points.
+
+    The flagship (``results/p_hardened_params.npz``, bf16, both kernels) is
+    saved by ``BestCheckpointer`` and read back by
+    ``RBVAEBundle.from_checkpoint``, then evaluated on ``train_video()``'s
+    396 frames: ``evaluate_consistency`` on the test split (three
+    perturbations, 10 trials), ``evaluate_hamming`` on every frame,
+    ``tradeoff.evaluate_checkpoint`` on the val split and
+    ``codes_from_torch_checkpoint`` on the test split, each encode chunk
+    one launch of ``fused_conv01`` and of ``lstm_binary_concrete``. Its
+    noise-off codes and its noise-ratio-0 modal codes are held against a
+    plain-route bundle. The percep model's consistency re-encodes its
+    perturbed pixels through the SD first stage (``flash_attention``), and
+    once more on perturbed latents (``perturb_embeddings``); the simple
+    variant's encode runs the standalone ``binary_concrete``. Each run's
+    launches are counted from 0 and must be exact."""
+    import functools
+    import tempfile
+
+    from svtpu_torch.config import PerceptualConfig, rbvae_variant
+    from svtpu_torch.evaluation import bitmatch, tradeoff
+    from svtpu_torch.evaluation.common import RBVAEBundle
+    from svtpu_torch.evaluation.consistency import (PERTURBATIONS,
+                                                    evaluate_consistency,
+                                                    perturb_embeddings)
+    from svtpu_torch.evaluation.hamming import evaluate_hamming
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.perceptual.embed import PerceptualEncoder
+    from svtpu_torch.training.checkpoints import BestCheckpointer
+
+    counters = {"fused_conv01": fused_conv01,
+                "lstm_binary_concrete": lstm_binary_concrete,
+                "binary_concrete": binary_concrete_fused,
+                "flash_attention": flash_attention}
+
+    def counted(run):
+        """``run()``'s result, the wall seconds to its codes on the host,
+        and the launches it made, every count set to 0 before it."""
+        for fn in counters.values():
+            fn.launches = 0
+        for name in flash_attention.launches_by_kernel:
+            flash_attention.launches_by_kernel[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {k: fn.launches for k, fn in counters.items()}
+
+    def median_s(run, n: int = 5) -> float:
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    t_phase = time.perf_counter()
+    meta, splits, ids, states = train_video()
+    store = MemoryStore(video_frames(meta, states), ids)
+    test_idx, val_idx = splits.flat("test"), splits.flat("val")
+    test01 = store.gather(np.asarray(test_idx)).astype(np.float32) / 255.0
+    frames = store.gather(np.asarray(ids))
+    flags = meta.flags
+
+    # The flagship through a checkpoint written as the trainer writes it.
+    cfg, sd = flagship(True)
+    with tempfile.TemporaryDirectory() as d:
+        BestCheckpointer(d).save({"model": sd, "optimizer": {}}, epoch=0,
+                                 metric=0.0)
+        bundle = RBVAEBundle.from_checkpoint(d, cfg, name="flagship",
+                                             device="cuda")
+    got = bundle.model.state_dict()
+    require(set(got) == set(sd) and all(torch.equal(got[k].cpu(), v)
+                                        for k, v in sd.items()),
+            "eval: the checkpoint did not round-trip exactly")
+
+    def flagship_eval():
+        return (evaluate_consistency(bundle, test01, test_idx, flags),
+                evaluate_hamming(bundle, frames, ids, flags),
+                tradeoff.evaluate_checkpoint(bundle, store.gather(
+                    np.asarray(val_idx)), val_idx, flags),
+                bitmatch.codes_from_torch_checkpoint(sd, cfg, test01,
+                                                     device="cuda"))
+
+    (cons, ham, point, ported), wall, launches = counted(flagship_eval)
+    trials = len(cons[0].trials)
+    want = (len(PERTURBATIONS) * trials * chunks(len(test_idx))
+            + chunks(len(ids)) + 2 * chunks(len(val_idx))
+            + chunks(len(test_idx)))
+    print(f"eval path, flagship: evaluate_consistency ({len(test_idx)} test "
+          f"frames, {len(PERTURBATIONS)} perturbations x {trials} trials) + "
+          f"evaluate_hamming ({len(ids)} frames, {chunks(len(ids))} chunks, "
+          f"the last padded) + tradeoff.evaluate_checkpoint ({len(val_idx)} "
+          f"val frames) + codes_from_torch_checkpoint ({len(test_idx)} test "
+          f"frames) in {wall:.2f} s with its warm-up; launches {launches}, "
+          f"expected {want} of fused_conv01 and lstm_binary_concrete, 0 of "
+          f"binary_concrete [{card}]")
+    require(launches["fused_conv01"] == want
+            and launches["lstm_binary_concrete"] == want
+            and launches["binary_concrete"] == 0
+            and launches["flash_attention"] == 0,
+            f"eval flagship launches {launches}, expected {want}")
+    scores = [s for r in cons for s in r.trials] + [point[0], point[2]]
+    require(all(np.isfinite(s) and 0.0 <= s <= 1.0 for s in scores),
+            f"eval: a consistency score outside [0, 1]: {scores}")
+    require(np.isfinite(point[1]) and 0.0 <= point[1] <= LATENT
+            and ham["hamming"].shape == (meta.num_states - 1,)
+            and ham["modal_codes"].shape == (meta.num_states, LATENT),
+            "eval: separation or Hamming result")
+    require(ported.shape == (len(test_idx), LATENT)
+            and set(np.unique(ported)) <= {0.0, 1.0}, "eval: ported codes")
+    print("eval path, flagship: consistency "
+          + ", ".join(f"{r.perturbation} {r.mean:.4f} (std {r.std:.4f})"
+                      for r in cons)
+          + f"; Hamming {ham['hamming'].tolist()}; trade-off point "
+          f"(consistency, separation, det consistency) "
+          f"{tuple(round(v, 4) for v in point)}")
+
+    # The kernel route against the plain route on the same weights.
+    plain = RBVAEBundle(*flagship(False), name="plain", device="cuda")
+    match = bitmatch.bit_match(bundle.encode(frames, noise=False),
+                               plain.encode(frames, noise=False))
+    modal = {}
+    for dtype, pair in (("bf16", (bundle, plain)),
+                        ("f32", tuple(RBVAEBundle(*flagship(k, "float32"),
+                                                  device="cuda")
+                                      for k in (True, False)))):
+        m = [evaluate_hamming(b, frames, ids, flags, noise_ratio=0.0)
+             ["modal_codes"] for b in pair]
+        modal[dtype] = int((m[0] != m[1]).sum())
+    n_modal = meta.num_states * LATENT
+    print(f"check eval codes, kernel route vs plain route: noise off on "
+          f"{len(ids)} frames, bit_match {match['bit_match_pct']:.4f}% "
+          f"(limit 98% bf16), exact codes "
+          f"{match['exact_code_match_pct']:.2f}%; evaluate_hamming at noise "
+          f"ratio 0, modal code bits that differ of {n_modal}: bf16 "
+          f"{modal['bf16']} (limit {int(0.02 * n_modal)}), f32 {modal['f32']} "
+          f"(limit 0)")
+    require(match["bit_match_pct"] >= 98.0, "eval codes: kernel route "
+            "disagrees with the plain route")
+    require(modal["bf16"] <= 0.02 * n_modal and modal["f32"] == 0,
+            "eval modal codes: kernel route disagrees with the plain route")
+
+    trial_s = {k: median_s(lambda k=k: evaluate_consistency(
+        bundle, test01, test_idx, flags, num_trials=1, perturbations=(k,)))
+        for k in PERTURBATIONS}
+    ham_s = median_s(lambda: evaluate_hamming(bundle, frames, ids, flags))
+    print(f"time: eval, flagship, one (perturbation, trial) of "
+          f"evaluate_consistency on {len(test_idx)} test frames, host clock "
+          f"to codes on the host, median of 5: "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in trial_s.items())
+          + f"; evaluate_hamming on {len(ids)} frames: {ham_s * 1e3:.2f} ms "
+          f"[{card}]")
+
+    # The percep model: perturbed pixels back through the SD first stage.
+    pframes = np.random.default_rng(8).integers(
+        0, 256, (PERCEP_FRAMES, 704, 1280, 3), np.uint8)
+    weights = percep_weights(pframes[:2])
+    enc = PerceptualEncoder(weights["ae"],
+                            PerceptualConfig(compute_dtype="bfloat16"),
+                            batch_size=PERCEP_BATCH, use_kernel=True)
+    pbundle = RBVAEBundle(percep_rbvae_cfg(True), weights["rbvae"],
+                          name="percep", device="cuda")
+    plabels = np.repeat(np.arange(4), PERCEP_FRAMES // 4)
+    pidx = list(range(PERCEP_FRAMES))
+    p01 = pframes.astype(np.float32) / 255.0
+
+    def pixel_to_input(frames01, seed):
+        enc.seed = seed
+        return enc.encode_frames(
+            np.clip(frames01 * 255.0, 0, 255).astype(np.uint8))
+
+    def percep_eval(kinds=PERTURBATIONS):
+        return evaluate_consistency(pbundle, p01, pidx, [], num_trials=1,
+                                    perturbations=kinds,
+                                    pixel_to_input=pixel_to_input,
+                                    labels=plabels)
+
+    pcons, pwall, plaunch = counted(percep_eval)
+    by_kernel = dict(flash_attention.launches_by_kernel)
+    pwant = {"flash_attention": len(PERTURBATIONS) * chunks(
+        PERCEP_FRAMES, PERCEP_BATCH),
+        "lstm_binary_concrete": len(PERTURBATIONS),
+        "binary_concrete": 0, "fused_conv01": 0}
+    enc.seed = 0
+    latents = enc.encode_frames(pframes)
+    ecodes, ewall, elaunch = counted(lambda: evaluate_consistency(
+        pbundle, latents, pidx, [], num_trials=1, labels=plabels,
+        perturb_fn=functools.partial(perturb_embeddings, device="cuda")))
+    ewant = dict(pwant, flash_attention=0)
+    ptrial_s = {k: median_s(lambda k=k: percep_eval((k,)), 2)
+                for k in PERTURBATIONS}
+    print(f"eval path, percep: evaluate_consistency ({PERCEP_FRAMES} "
+          f"frames 1280x704, pixel_to_input = encode_frames in batches of "
+          f"{PERCEP_BATCH}, {len(PERTURBATIONS)} perturbations x 1 trial) in "
+          f"{pwall:.2f} s: launches {plaunch}, flash_attention by kernel "
+          f"{by_kernel}, expected {pwant}; consistency "
+          + ", ".join(f"{r.perturbation} {r.mean:.4f}" for r in pcons)
+          + f"; on perturb_embeddings' latents in {ewall:.2f} s: launches "
+          f"{elaunch}, expected {ewant}; consistency "
+          + ", ".join(f"{r.perturbation} {r.mean:.4f}" for r in ecodes)
+          + f" [{card}]")
+    print(f"time: eval, percep, one (perturbation, trial) of "
+          f"evaluate_consistency with the SD re-encode, host clock, median "
+          f"of 2: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                for k, v in ptrial_s.items())
+          + f" [{card}]")
+    require(plaunch == pwant and by_kernel["bf16_d512"] == pwant[
+        "flash_attention"], f"eval percep launches {plaunch}")
+    require(elaunch == ewant, f"eval percep (embeddings) launches {elaunch}")
+    require(all(np.isfinite(s) and 0.0 <= s <= 1.0
+                for r in pcons + ecodes for s in r.trials),
+            "eval percep: a consistency score outside [0, 1]")
+
+    # The simple variant: binarizes before its LSTM, so the standalone
+    # sampler kernel, reached from the bundle's encode.
+    scfg = rbvae_variant("simple", LATENT, compute_dtype="bfloat16",
+                         pallas_sampler=True)
+    ssd = Seq2SeqBinaryVAE(scfg, device="cpu",
+                           generator=torch.Generator().manual_seed(22)
+                           ).state_dict()
+    sframes = np.random.default_rng(3).integers(0, 256, (BATCH, 64, 64, 3),
+                                                np.uint8)
+    sbundle = RBVAEBundle(scfg, ssd, name="simple", device="cuda")
+    scodes, _, slaunch = counted(lambda: sbundle.encode(sframes))
+    swant = {"binary_concrete": chunks(BATCH), "lstm_binary_concrete": 0,
+             "fused_conv01": 0, "flash_attention": 0}
+    print(f"eval path, simple: RBVAEBundle.encode ({BATCH} frames 64x64, "
+          f"noise on): launches {slaunch}, expected {swant}; share of ones "
+          f"{scodes.mean():.3f}")
+    require(slaunch == swant, f"eval simple launches {slaunch}")
+    require(scodes.shape == (BATCH, LATENT), "eval simple codes")
+    print(f"eval path: all checks passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"flagship": launches, "percep": plaunch,
+            "percep embeddings": elaunch, "simple": slaunch}
+
+
 def attention_library(q, k, v):
     """One PyTorch call computing the same attention, and its backend:
     ``F.scaled_dot_product_attention`` on ``[B, 1, N, D]`` with the first
@@ -1474,13 +1754,20 @@ def instance(symbol: str) -> str:
 
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
                        percep: dict, simple: dict, wide: dict,
-                       train: dict) -> list:
+                       train: dict, evaluation: dict) -> list:
+    """Each kernel's row of the kernels line: its time, its plain
+    version's, a library call's where one computes the same function, its
+    bound, and its launches on every path of this run (the evaluation
+    phase's included)."""
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
                                                  fused_conv01_plain)
     from svtpu_torch.ops.lstm_cuda import (lstm_binary_concrete,
                                            lstm_binary_concrete_plain)
+
+    def eval_launches(name):
+        return sum(d[name] for d in evaluation.values())
 
     rows = []
     x, w0, b0, w1, b1 = trunk_inputs(BATCH, 2)
@@ -1505,7 +1792,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
         launches=sum(d["launches"]["fused_conv01"]
-                     for d in (main, wide, train)),
+                     for d in (main, wide, train))
+        + eval_launches("fused_conv01"),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
@@ -1518,7 +1806,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"launches per encode {main['per_encode']['fused_conv01']:.0f} "
           f"(pixel {main['launches']['fused_conv01']}, wide latent "
           f"{wide['launches']['fused_conv01']}, train probes "
-          f"{train['launches']['fused_conv01']}) [{card}]")
+          f"{train['launches']['fused_conv01']}, evaluation "
+          f"{eval_launches('fused_conv01')}) [{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
@@ -1538,6 +1827,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     launches = {k: d["launches"]["binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("simple", simple),
                  ("wide", wide))}
+    launches["evaluation"] = eval_launches("binary_concrete")
     rows.append(dict(
         name="binary_concrete", route="cuda",
         source="svtpu_torch/csrc/binary_concrete.cu",
@@ -1586,6 +1876,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
                 (("pixel", main), ("percep", percep), ("train", train))}
     launches["percep train"] = \
         train["percep_launches"]["lstm_binary_concrete"]
+    launches["evaluation"] = eval_launches("lstm_binary_concrete")
     rows.append(dict(
         name="lstm_binary_concrete", route="cuda",
         source="svtpu_torch/csrc/lstm_binary_concrete.cu",
@@ -1630,7 +1921,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         name="flash_attention", route="cuda",
         source="svtpu_torch/csrc/flash_attention.cu",
         replaces="svtpu/ops/attention.py:26",
-        launches=percep["launches"]["flash_attention"],
+        launches=percep["launches"]["flash_attention"]
+        + eval_launches("flash_attention"),
         max_abs_err=errs["flash_attention"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
@@ -1642,7 +1934,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f", bound {max(bound.values()):.3f} ms "
           f"({max(bound, key=bound.get)}: {flops / 1e12:.3f} TFLOP), "
           f"launches on the percep path "
-          f"{percep['launches']['flash_attention']} [{card}]")
+          f"{percep['launches']['flash_attention']}, evaluation "
+          f"{eval_launches('flash_attention')} [{card}]")
     return rows
 
 
@@ -1667,8 +1960,9 @@ def main() -> None:
     wide = phase_wide_path(card)
     percep = phase_percep_path(card)
     train = phase_train_path(card)
+    evaluation = phase_eval_path(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
-                              wide, train)
+                              wide, train, evaluation)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "

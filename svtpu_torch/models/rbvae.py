@@ -223,7 +223,10 @@ class Seq2SeqBinaryVAE(nn.Module):
     def _init_weights(self, gen: torch.Generator) -> None:
         """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for convs and linears (torch's
         default, fan_in as torch computes it), U(-1/sqrt(H), 1/sqrt(H)) for
-        the LSTMs — drawn from ``gen``."""
+        the LSTMs' weights and ``bias_ih`` — drawn from ``gen``. ``bias_hh``
+        starts at 0: ``svtpu`` has one bias a layer, U(-1/sqrt(H),
+        1/sqrt(H)) (``svtpu/ops/lstm.py:51-61``), and the LSTM adds the two
+        biases, so their sum has that law."""
         for m in self.modules():
             if isinstance(m, (Conv2dTorch, ConvTranspose2dTorch, Dense)):
                 # weight[0] spans fan_in for all three layouts.
@@ -235,6 +238,9 @@ class Seq2SeqBinaryVAE(nn.Module):
             else:
                 continue
             for name, p in m.named_parameters(recurse=False):
+                if name.startswith("bias_hh"):
+                    p.zero_()
+                    continue
                 bound = bounds[name]
                 p.copy_(torch.rand(p.shape, generator=gen) * (2 * bound)
                         - bound)

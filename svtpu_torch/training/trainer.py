@@ -45,6 +45,7 @@ from svtpu_torch.config import RBVAEConfig, TrainConfig
 from svtpu_torch.data.datasets import PairBatcher, SegmentBatcher
 from svtpu_torch.data.prefetch import prefetch_to_device
 from svtpu_torch.data.segments import SplitIndices, assign_label
+from svtpu_torch.evaluation.common import encode_chunks
 from svtpu_torch.evaluation.hamming import adjacent_hamming, modal_codes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops import losses
@@ -475,39 +476,23 @@ class Trainer:
 
     # ------------------------------------------------------------- encoding
 
-    @torch.no_grad()
     def encode_frames(self, model, frames: np.ndarray, temperature: float,
                       hard: bool = True, noise: bool = True, seed: int = 0,
                       chunk: int = 128, from_bank: bool = False) -> np.ndarray:
-        """Batched single-frame encode → codes ``[N, latent]``.
-
-        Each frame is a T=1 sequence, ``chunk`` frames at a time, the last
-        chunk padded by repeating its last frame; chunk ``i`` (its offset)
-        draws its noise from ``batch_seed(seed, i)``. ``model.encode`` runs
-        the kernels the model config asks for. ``from_bank=True``:
-        ``frames`` are row indices into the device bank.
-        """
+        """Batched single-frame encode → codes ``[N, latent]``
+        (``encode_chunks``) at the eval noise ratio. ``from_bank=True``:
+        ``frames`` are row indices into the device bank."""
         cfg = self.cfg
         enc_noise = (cfg.eval_noise_ratio if cfg.eval_noise_ratio is not None
                      else cfg.noise_ratio)
         use_bank = from_bank and self._bank is not None
-        out = []
-        for i in range(0, len(frames), chunk):
-            part = frames[i:i + chunk]
-            n = len(part)
-            if n < chunk:
-                part = np.concatenate([part,
-                                       np.repeat(part[-1:], chunk - n, 0)])
+
+        def load(part):
             x = torch.from_numpy(part).to(self.device)
-            x = _prep(self._bank[x.long()] if use_bank else x)
-            gen = None
-            if noise:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(batch_seed(seed, i))
-            z = model.encode(x[:, None], temperature, hard, enc_noise,
-                             deterministic=not noise, generator=gen)
-            out.append(z[:n, 0].float().cpu().numpy())
-        return np.concatenate(out) if out else np.zeros((0,))
+            return _prep(self._bank[x.long()] if use_bank else x)
+
+        return encode_chunks(model, frames, load, temperature, hard, noise,
+                             enc_noise, seed, chunk)
 
     def _val_codes(self, model, val_idx, temperature, noise: bool,
                    seed: int) -> np.ndarray:

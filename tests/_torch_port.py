@@ -1,4 +1,6 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
+import functools
+
 import numpy as np
 
 import jax
@@ -73,3 +75,31 @@ class ArrayStore:
 
     def gather(self, frame_indices):
         return self.array[self.rows(frame_indices)]
+
+
+@functools.lru_cache(maxsize=None)
+def eval_model():
+    """The evaluation tests' tiny model (``tests/test_evaluation.py:22-29``):
+    ``(svtpu config, svtpu params, port config, port state dict)``, the
+    params drawn by ``svtpu``'s own init at key 0 and carried across by
+    ``from_jax_params``."""
+    from svtpu.config import rbvae_variant as jax_variant
+    from svtpu_torch.config import rbvae_variant
+    from svtpu_torch.models.convert import from_jax_params
+
+    jcfg = jax_variant("contrastive", latent_dim=6, input_hw=(32, 32))
+    tcfg = rbvae_variant("contrastive", latent_dim=6, input_hw=(32, 32))
+    x0 = jnp.zeros((1, 1, 32, 32, 3))
+    params = JaxRBVAE(jcfg).init({"params": jax.random.key(0)}, x0, 1.0,
+                                 False, deterministic=True)
+    return jcfg, params, tcfg, from_jax_params(params, tcfg)
+
+
+def eval_frames() -> np.ndarray:
+    """``tests/test_evaluation.py:32-38``'s 30 seeded frames: three states
+    of ten, one bright channel each, plus noise."""
+    rng = np.random.default_rng(0)
+    f = np.zeros((30, 32, 32, 3), np.float32)
+    for i in range(30):
+        f[i, ..., i // 10] = 0.8
+    return np.clip(f + rng.normal(0, 0.05, f.shape), 0, 1).astype(np.float32)

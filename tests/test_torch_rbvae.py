@@ -191,3 +191,27 @@ def test_conv_final_relu_on_the_kernel_route():
     np.testing.assert_allclose(logits[True], ref, rtol=1e-4, atol=1e-4)
     assert not np.allclose(logits[False], ref, rtol=1e-4, atol=1e-4)
     assert _codes_bit_identical(jz, tz, h / 0.2) == 0
+
+
+@pytest.mark.parametrize("case", [("contrastive", {}),
+                                  ("percep", dict(lstm_residual=True))],
+                         ids=["contrastive", "percep"])
+def test_fresh_lstm_bias_has_svtpus_law(case):
+    """A fresh model's summed LSTM bias has svtpu's law, one U(±1/sqrt(H))
+    bias a layer (``svtpu/ops/lstm.py:51-61``): ``bias_hh`` starts at 0,
+    the sum lies within ±1/sqrt(H), and its std is within 15% of
+    1/sqrt(3H) in every layer (4H = 100 draws a layer: ~3.3 standard
+    errors of a sample std)."""
+    variant, kw = case
+    model = Seq2SeqBinaryVAE(rbvae_variant(variant, 25, **kw), device="cpu")
+    for name in ("encoder_rnn", "decoder_rnn"):
+        lstm = getattr(model, name).lstm
+        H = lstm.hidden_size
+        for k in range(lstm.num_layers):
+            b_ih = getattr(lstm, f"bias_ih_l{k}").detach()
+            b_hh = getattr(lstm, f"bias_hh_l{k}").detach()
+            b = b_ih + b_hh
+            assert torch.equal(b_hh, torch.zeros_like(b_hh)), (name, k)
+            assert float(b.abs().max()) <= 1 / np.sqrt(H), (name, k)
+            std = float(b.std())
+            assert abs(std * np.sqrt(3 * H) - 1) <= 0.15, (name, k, std)
