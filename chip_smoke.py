@@ -49,7 +49,15 @@ on and their launches counted:
     consistency through the SD first stage (``flash_attention``) and on
     perturbed latents, and the simple variant's encode (the standalone
     ``binary_concrete``), launches counted exactly; codes against the
-    plain route, and per-trial times.
+    plain route, and per-trial times;
+  * the command line: ``svtpu_torch.cli`` as a user runs it, no
+    ``--device`` (``train`` with the ``percep-flagship`` and ``flagship``
+    presets, ``encode`` of a JPEG directory, ``embed`` through the SD first
+    stage, ``eval-hamming``, ``eval-consistency`` with both percep
+    protocols, ``eval-tradeoff``), one command again in a subprocess; its
+    ``encode`` and ``embed`` held bit for bit against the library calls,
+    ``flash_attention``'s launches exact and every other kernel's 0 (the
+    CLI keeps ``svtpu``'s kernel defaults), and each command's wall time.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -60,6 +68,7 @@ without one.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import re
@@ -170,6 +179,9 @@ def phase_toolchain() -> str:
     print(f"toolchain: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, torch.version.cuda {torch.version.cuda}, "
           f"nvcc {nvcc.stdout.strip().splitlines()[-1]}, card {card}")
+    print("host packages (importable): " + ", ".join(
+        f"{m} {importlib.util.find_spec(m) is not None}"
+        for m in ("PIL", "matplotlib", "sklearn", "cv2")))
     return card
 
 
@@ -1366,10 +1378,7 @@ def phase_train_path(card: str) -> dict:
     phase_train_breakdown(card, tr, state, idx, mcfg, B * 2 * S)
 
     # Check 6: one epoch of percep-flagship on SD-shaped latents.
-    prng = np.random.default_rng(12)
-    emb = {f"{i:010d}.jpg": (prng.normal(size=(1, 4, 88, 160))
-                             + 0.5 * s).astype(np.float32)
-           for i, s in zip(ids, states)}
+    emb = percep_latents(ids, states)
     pcfg = rbvae_variant("percep", LATENT, lstm_residual=True,
                          compute_dtype="bfloat16", pallas_sampler=True)
     for fn in counters.values():
@@ -1703,6 +1712,329 @@ def phase_eval_path(card: str) -> dict:
             "percep embeddings": elaunch, "simple": slaunch}
 
 
+def percep_latents(ids, states) -> dict:
+    """Seeded SD-shaped latents for ``train_video()``'s frames in the
+    reference's ``.npy`` layout, ``{"%010d.jpg": float32 [1, 4, 88, 160]}``:
+    unit noise plus half the frame's state."""
+    prng = np.random.default_rng(12)
+    return {f"{i:010d}.jpg": (prng.normal(size=(1, 4, 88, 160))
+                              + 0.5 * s).astype(np.float32)
+            for i, s in zip(ids, states)}
+
+
+def write_jpegs(d: Path, frames: np.ndarray) -> None:
+    """``frames[i]`` as ``d / "%010d.jpg" % i`` (PIL, its default
+    quality)."""
+    from PIL import Image
+
+    d.mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(d / f"{i:010d}.jpg")
+
+
+def phase_cli_path(card: str) -> dict:
+    """The command line (``svtpu_torch.cli.main``) on the card, in-process so
+    that the wrappers' launch counters can be read, every command without
+    ``--device`` (the card is the default). The card's host has PIL (PERF.md
+    §6), so the phase requires it and drives the commands that read images
+    too:
+
+      * on 396 seeded latents at ``chinese_chess``'s geometry: ``train
+        --preset percep-flagship`` (1 epoch), then ``eval-hamming``,
+        ``eval-consistency`` (embedding protocol, 2 trials) and
+        ``eval-tradeoff --extra`` on its checkpoint; ``eval-hamming`` also as
+        ``python3 -m svtpu_torch.cli`` in a subprocess, whose output must
+        equal the in-process run's;
+      * on the 480 frames of a seeded 256x256 video of that geometry as
+        JPEGs: ``train --preset flagship`` (2 epochs), ``encode`` of the
+        directory (noisy, then ``--deterministic``, held bit for bit against
+        ``VideoSymbolPipeline.run_frames``), ``eval-hamming`` and
+        ``eval-consistency --trials 2``;
+      * on 16 seeded 720x1280 JPEGs, with ``percep_weights`` saved by
+        ``torch.save`` under ``first_stage_model.`` names: ``embed`` and
+        ``embed --deterministic`` (held against
+        ``PerceptualEncoder.encode_frames``), and ``eval-consistency
+        --variant percep --sd-ckpt`` (1 trial).
+
+    The CLI keeps ``svtpu``'s defaults, ``pallas_trunk`` and
+    ``pallas_sampler`` off, so only ``flash_attention`` (the SD first
+    stage's) lies on its path: its launches must be exact, every other
+    kernel's 0. The commands run under PyTorch's default TF32 settings, as
+    a user's do. Each command's wall time (host clock) is printed."""
+    import contextlib
+    import io
+    import tempfile
+
+    from svtpu_torch import cli
+    from svtpu_torch.config import BUILTIN_VIDEOS, PerceptualConfig
+    from svtpu_torch.config import rbvae_variant
+    from svtpu_torch.data.datasets import FrameStore
+    from svtpu_torch.data.segments import assign_label
+    from svtpu_torch.data.symbols import SymbolStore
+    from svtpu_torch.evaluation.common import RBVAEBundle
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.perceptual.convert import PREFIX
+    from svtpu_torch.perceptual.embed import (PerceptualEncoder,
+                                              load_frame_pm1)
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+    from svtpu_torch.training.checkpoints import BestCheckpointer
+
+    require(importlib.util.find_spec("PIL") is not None,
+            "cli path: PIL is missing on the card's host")
+    counters = {"fused_conv01": fused_conv01,
+                "lstm_binary_concrete": lstm_binary_concrete,
+                "binary_concrete": binary_concrete_fused,
+                "flash_attention": flash_attention}
+    total = dict.fromkeys(counters, 0)
+    none = dict.fromkeys(counters, 0)
+
+    def run(argv, want=none, peak_min=1):
+        """``cli.main(argv)`` with every count set to 0 before it: its
+        stdout, and the wall seconds. Launches must equal ``want``, and
+        the card memory the command allocated must reach ``peak_min``
+        bytes (its model's weights: it ran on the card)."""
+        for fn in counters.values():
+            fn.launches = 0
+        for name in flash_attention.launches_by_kernel:
+            flash_attention.launches_by_kernel[name] = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k, v in got.items():
+            total[k] += v
+        out = buf.getvalue()
+        last = [ln for ln in out.splitlines() if ln][-3:]
+        shown = " ".join(a.name if isinstance(a, Path) else str(a)
+                         for a in argv)
+        print(f"cli {shown}: "
+              f"{wall:.2f} s, launches {got}, card memory allocated "
+              f"{peak / 2 ** 20:.1f} MiB; last output {last} [{card}]")
+        require(got == dict(none, **want), f"cli {argv[0]}: launches {got}, "
+                f"expected {dict(none, **want)}")
+        require(peak >= peak_min, f"cli {argv[0]}: allocated {peak} bytes on "
+                f"the card, expected at least {peak_min} (its weights)")
+        return out, wall
+
+    def csv_rows(path):
+        return Path(path).read_text().strip().splitlines()
+
+    def weight_bytes(ckpt):
+        tree, _ = BestCheckpointer(ckpt).restore()
+        return sum(v.numel() * v.element_size()
+                   for v in tree["model"].values())
+
+    def card_bundle(ckpt, cfg):
+        b = RBVAEBundle.from_checkpoint(ckpt, cfg, device="cuda")
+        require(all(p.device.type == "cuda" for p in b.model.parameters()),
+                "cli: a checkpoint's bundle is not on the card")
+        return b
+
+    t_phase = time.perf_counter()
+    saved_tf32 = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True           # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meta, splits, ids, states = train_video()
+    video = ["--video", "chinese_chess"]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        # 1. The percep-flagship on latents: no image file read.
+        np.save(d / "latents.npy", percep_latents(ids, states))
+        pckpt, pdata = d / "percep_ckpt", ["--embeddings", d / "latents.npy"]
+        run(["train", "--preset", "percep-flagship", *video, *pdata,
+             "--epochs", 1, "--save-path", pckpt])
+        pbytes = weight_bytes(pckpt)
+        card_bundle(pckpt, rbvae_variant("percep", LATENT,
+                                         lstm_residual=True))
+        pmodel = ["--variant", "percep", "--latent-dim", LATENT,
+                  "--lstm-residual", "--ckpt", pckpt, *pdata]
+        ham_argv = ["eval-hamming", *video, *pmodel, "--out-dir",
+                    d / "ham_in"]
+        ham_out, _ = run(ham_argv, peak_min=pbytes)
+        require(len(csv_rows(d / "ham_in" / "hamming.csv"))
+                == meta.num_states, "cli eval-hamming: CSV rows")
+        run(["eval-consistency", *video, *pmodel, "--trials", 2,
+             "--out-dir", d / "cons_p"], peak_min=pbytes)
+        require(len(csv_rows(d / "cons_p" / "consistency.csv")) == 4,
+                "cli eval-consistency (embeddings): CSV rows")
+        run(["eval-tradeoff", *video, *pdata, "--variant", "percep",
+             "--extra", f"percep:{pckpt}:{LATENT}", "--out-dir",
+             d / "trade"], peak_min=pbytes)
+        require(len(csv_rows(d / "trade" / "tradeoff.csv")) == 2,
+                "cli eval-tradeoff: CSV rows")
+        # The same eval-hamming as a user runs it: a fresh interpreter, no
+        # --device.
+        sub_argv = [str(a) for a in ham_argv[:-1]] + [str(d / "ham_sub")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "svtpu_torch.cli",
+                               *sub_argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+        sub_wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"cli subprocess failed: "
+                f"{proc.stderr[-2000:]}")
+
+        def hamming_lines(out):
+            return [ln for ln in out.splitlines() if "adjacent hamming" in ln]
+
+        same = (hamming_lines(proc.stdout) == hamming_lines(ham_out)
+                and csv_rows(d / "ham_sub" / "hamming.csv")
+                == csv_rows(d / "ham_in" / "hamming.csv"))
+        print(f"cli subprocess: python3 -m svtpu_torch.cli eval-hamming, no "
+              f"--device, {sub_wall:.2f} s with its start-up; output "
+              f"{hamming_lines(proc.stdout)}, equal to the in-process run's "
+              f"and its CSV: {same} [{card}]")
+        require(same, "cli subprocess: output differs from the in-process "
+                "run's")
+
+        # 2. The flagship on a JPEG directory.
+        frames_dir = d / "frames"
+        all_ids = np.arange(meta.last_frame + 1)
+        all_states = np.asarray([assign_label(i, meta.flags)
+                                 for i in all_ids])
+        t0 = time.perf_counter()
+        write_jpegs(frames_dir, video_frames(meta, all_states))
+        n_all = len(all_ids)
+        print(f"cli path: wrote {n_all} seeded 256x256 JPEGs "
+              f"(chinese_chess's geometry; its segments hold {len(ids)}) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        fckpt = d / "flagship_ckpt"
+        fdata = [*video, "--frames-dir", frames_dir]
+        run(["train", "--preset", "flagship", *fdata, "--epochs", 2,
+             "--save-path", fckpt])
+        fbytes = weight_bytes(fckpt)
+        fcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16")
+        card_bundle(fckpt, fcfg)
+        enc = ["encode", frames_dir, "--ckpt", fckpt, *video]
+        run([*enc, "--out", d / "sym_warm.npz"], peak_min=fbytes)
+        _, enc_wall = run([*enc, "--out", d / "sym.npz"], peak_min=fbytes)
+        run([*enc, "--deterministic", "--out", d / "sym_det.npz"],
+            peak_min=fbytes)
+        sym, det = (SymbolStore.load(d / n) for n in ("sym.npz",
+                                                        "sym_det.npz"))
+        for s in (sym, det):
+            require(len(s) == n_all and s.codes.shape == (n_all, LATENT)
+                    and set(np.unique(s.codes)) <= {0, 1}
+                    and np.array_equal(s.labels, all_states),
+                    "cli encode: SymbolStore shape, values or labels")
+        # The library path on the same frames and checkpoint.
+        t0 = time.perf_counter()
+        store = FrameStore(frames_dir, all_ids, resolution=(256, 256))
+        decode_s = time.perf_counter() - t0
+        tree, _ = BestCheckpointer(fckpt).restore()
+        pipes = {noise: VideoSymbolPipeline(fcfg, tree["model"], noise=noise)
+                 for noise in (False, True)}
+
+        def library(noise):
+            return np.concatenate([pipes[noise].run_frames(
+                store.array[i:i + 64], batch_index=i)
+                for i in range(0, n_all, 64)])
+
+        lib_det = library(False)
+        require(np.array_equal(det.codes, lib_det), "cli encode "
+                "--deterministic differs from VideoSymbolPipeline.run_frames")
+        require(np.array_equal(sym.codes, library(True)), "cli encode "
+                "(noisy) differs from run_frames with the same batch seeds")
+        enc_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            library(True)
+            enc_s.append(time.perf_counter() - t0)
+        enc_s = statistics.median(enc_s)
+        print(f"check cli encode: {n_all} codes of dim {LATENT} in {{0, 1}} "
+              f"with their labels; --deterministic equals "
+              f"VideoSymbolPipeline.run_frames bit for bit, and the noisy "
+              f"run equals it with the same batch seeds; share of ones "
+              f"{sym.codes.mean():.3f}")
+        print(f"time: cli encode, {n_all} 256x256 JPEGs -> SymbolStore on "
+              f"disk, noisy, batch 64, bf16, in-process after one warm-up "
+              f"run: {enc_wall:.3f} s, {n_all / enc_wall:.1f} frames/s end "
+              f"to end; of which JPEG decode (FrameStore, 16 threads) "
+              f"{decode_s:.3f} s ({n_all / decode_s:.1f} frames/s), card "
+              f"encode (run_frames x{-(-n_all // 64)}, median of 3) "
+              f"{enc_s:.3f} s ({n_all / enc_s:.1f} frames/s) [{card}]")
+        fmodel = ["--ckpt", fckpt, "--latent-dim", LATENT]
+        run(["eval-hamming", *fdata, *fmodel, "--out-dir", d / "ham_f"],
+            peak_min=fbytes)
+        require(len(csv_rows(d / "ham_f" / "hamming.csv"))
+                == meta.num_states, "cli eval-hamming (pixels): CSV rows")
+        run(["eval-consistency", *fdata, *fmodel, "--trials", 2,
+             "--out-dir", d / "cons_f"], peak_min=fbytes)
+        require(len(csv_rows(d / "cons_f" / "consistency.csv")) == 4,
+                "cli eval-consistency (pixels): CSV rows")
+
+        # 3. The SD first stage on 720x1280 JPEGs.
+        sd_dir = d / "sd_frames"
+        write_jpegs(sd_dir, np.random.default_rng(9).integers(
+            0, 256, (PERCEP_FRAMES, 720, 1280, 3), np.uint8))
+        pcfg = PerceptualConfig()
+        paths = sorted(sd_dir.glob("*.jpg"))
+        decoded = np.stack([load_frame_pm1(str(p), pcfg.resize_wh)
+                            for p in paths])
+        weights = percep_weights(decoded[:2])
+        torch.save({"state_dict": {PREFIX + k: v.cpu()
+                                   for k, v in weights["ae"].items()}},
+                   d / "sd.ckpt")
+        ae_bytes = sum(v.numel() * v.element_size()
+                       for v in weights["ae"].values())
+        attn = {"flash_attention": chunks(PERCEP_FRAMES, PERCEP_BATCH)}
+        for det_flag in ([], ["--deterministic"]):
+            run(["embed", sd_dir, d / "emb.npy", "--ckpt", d / "sd.ckpt",
+                 *det_flag], attn, peak_min=ae_bytes)
+            require(flash_attention.launches_by_kernel["bf16_d512"]
+                    == attn["flash_attention"],
+                    "cli embed: attention not on the D = 512 kernel")
+        emb = np.load(d / "emb.npy", allow_pickle=True).item()
+        require(sorted(emb) == [p.name for p in paths] and all(
+            v.shape == (1, 4, 88, 160) and v.dtype == np.float32
+            for v in emb.values()), "cli embed: keys or shapes")
+        ref = PerceptualEncoder(weights["ae"], pcfg, stochastic=False,
+                                device="cuda").encode_frames(decoded)
+        got = np.concatenate([emb[p.name] for p in paths]).transpose(
+            0, 2, 3, 1)
+        err = float(np.abs(got - ref).max())
+        print(f"check cli embed --deterministic vs "
+              f"PerceptualEncoder.encode_frames on the same decoded frames: "
+              f"max abs diff {err} (limit 0: the same code on the same "
+              f"card)")
+        require(err == 0.0, "cli embed differs from encode_frames")
+        sd_video = ["--video", "sd16", "--flags", PERCEP_FRAMES // 2,
+                    "--last-frame", PERCEP_FRAMES - 1, "--grey-out", 0,
+                    "--test-pct", 1.0, "--val-pct", 0.0]
+        # Every frame is a test frame: 3 perturbations x 1 trial x 2 SD
+        # batches of 8, each one encoder attention.
+        sd_want = {"flash_attention": 3 * chunks(PERCEP_FRAMES,
+                                                 PERCEP_BATCH)}
+        run(["eval-consistency", *sd_video, "--frames-dir", sd_dir,
+             "--variant", "percep", "--sd-ckpt", d / "sd.ckpt", "--ckpt",
+             pckpt, "--latent-dim", LATENT, "--lstm-residual", "--trials",
+             1, "--out-dir", d / "cons_sd"], sd_want, peak_min=ae_bytes)
+        require(flash_attention.launches_by_kernel["bf16_d512"]
+                == sd_want["flash_attention"],
+                "cli eval-consistency --sd-ckpt: attention not on the D = "
+                "512 kernel")
+        require(len(csv_rows(d / "cons_sd" / "consistency.csv")) == 4,
+                "cli eval-consistency --sd-ckpt: CSV rows")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = saved_tf32
+    print(f"cli path: all checks passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {total} "
+          f"(flash_attention: 2 embeds x {attn['flash_attention']} + "
+          f"{sd_want['flash_attention']}; the rest 0: the CLI keeps svtpu's "
+          f"kernel defaults) [{card}]")
+    return {"launches": total, "encode_fps": n_all / enc_wall}
+
+
 def attention_library(q, k, v):
     """One PyTorch call computing the same attention, and its backend:
     ``F.scaled_dot_product_attention`` on ``[B, 1, N, D]`` with the first
@@ -1754,11 +2086,11 @@ def instance(symbol: str) -> str:
 
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
                        percep: dict, simple: dict, wide: dict,
-                       train: dict, evaluation: dict) -> list:
+                       train: dict, evaluation: dict, cli: dict) -> list:
     """Each kernel's row of the kernels line: its time, its plain
     version's, a library call's where one computes the same function, its
-    bound, and its launches on every path of this run (the evaluation
-    phase's included)."""
+    bound, and its launches on every path of this run (the evaluation and
+    command-line phases' included)."""
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
@@ -1792,7 +2124,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
         launches=sum(d["launches"]["fused_conv01"]
-                     for d in (main, wide, train))
+                     for d in (main, wide, train, cli))
         + eval_launches("fused_conv01"),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
@@ -1807,7 +2139,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"(pixel {main['launches']['fused_conv01']}, wide latent "
           f"{wide['launches']['fused_conv01']}, train probes "
           f"{train['launches']['fused_conv01']}, evaluation "
-          f"{eval_launches('fused_conv01')}) [{card}]")
+          f"{eval_launches('fused_conv01')}, cli "
+          f"{cli['launches']['fused_conv01']}) [{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
@@ -1826,7 +2159,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
              "bytes": 2 * 2 * n / PEAK_BYTES * 1e3}
     launches = {k: d["launches"]["binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("simple", simple),
-                 ("wide", wide))}
+                 ("wide", wide), ("cli", cli))}
     launches["evaluation"] = eval_launches("binary_concrete")
     rows.append(dict(
         name="binary_concrete", route="cuda",
@@ -1873,7 +2206,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     usage = {fn: r for fn, r in build.items()
              if "lstm_binary_concrete_kernel" in fn}
     launches = {k: d["launches"]["lstm_binary_concrete"] for k, d in
-                (("pixel", main), ("percep", percep), ("train", train))}
+                (("pixel", main), ("percep", percep), ("train", train),
+                 ("cli", cli))}
     launches["percep train"] = \
         train["percep_launches"]["lstm_binary_concrete"]
     launches["evaluation"] = eval_launches("lstm_binary_concrete")
@@ -1922,7 +2256,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/flash_attention.cu",
         replaces="svtpu/ops/attention.py:26",
         launches=percep["launches"]["flash_attention"]
-        + eval_launches("flash_attention"),
+        + eval_launches("flash_attention")
+        + cli["launches"]["flash_attention"],
         max_abs_err=errs["flash_attention"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
@@ -1935,7 +2270,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"({max(bound, key=bound.get)}: {flops / 1e12:.3f} TFLOP), "
           f"launches on the percep path "
           f"{percep['launches']['flash_attention']}, evaluation "
-          f"{eval_launches('flash_attention')} [{card}]")
+          f"{eval_launches('flash_attention')}, cli "
+          f"{cli['launches']['flash_attention']} [{card}]")
     return rows
 
 
@@ -1961,8 +2297,9 @@ def main() -> None:
     percep = phase_percep_path(card)
     train = phase_train_path(card)
     evaluation = phase_eval_path(card)
+    cli = phase_cli_path(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
-                              wide, train, evaluation)
+                              wide, train, evaluation, cli)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "

@@ -1,7 +1,8 @@
 """Configurations — the port's own copy of ``svtpu.config``: ``VideoMeta``,
 ``parse_transition_flags`` and ``BUILTIN_VIDEOS`` (``svtpu/config.py:23-106``),
 ``RBVAEConfig`` and ``rbvae_variant`` (``:114-254``), ``TrainConfig``
-(``:262-461``) and ``PerceptualConfig`` (``:464-479``).
+(``:262-461``), ``PerceptualConfig`` (``:464-479``) and ``to_json`` /
+``from_json`` (``:482-491``).
 
 Field names and defaults are the reference's, so one config means the same
 model in both packages. ``pallas_trunk`` / ``pallas_sampler`` keep their
@@ -12,6 +13,7 @@ names: here they route ``encode`` through the hand-written CUDA kernels
 from __future__ import annotations
 
 import dataclasses
+import json
 import re
 from pathlib import Path
 from typing import Optional, Tuple
@@ -282,3 +284,19 @@ class PerceptualConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+
+def to_json(cfg) -> str:
+    """A config as JSON, the same text ``svtpu``'s ``to_json`` gives for the
+    same field values."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def from_json(cls, s: str):
+    """Inverse of :func:`to_json` for the dataclass ``cls`` (JSON lists
+    become the tuples the fields hold)."""
+    d = json.loads(s)
+    for f in dataclasses.fields(cls):
+        if f.name in d and isinstance(d[f.name], list):
+            d[f.name] = tuple(d[f.name])
+    return cls(**d)

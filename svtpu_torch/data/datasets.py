@@ -30,8 +30,10 @@ def _decode_frame(path: str, hw: Tuple[int, int]) -> np.ndarray:
 
 class FrameStore:
     """All frames of one video, decoded to ``[N, H, W, 3]`` uint8 from
-    ``%010d.jpg`` files by PIL (``decoder="pil"``, or ``"auto"``). The
-    native decoder is not ported yet: ``decoder="native"`` raises."""
+    ``%010d.jpg`` files by PIL (``decoder="pil"``, or ``"auto"``): what
+    ``svtpu_torch.cli``'s ``train``, ``encode`` and ``eval-*`` commands
+    read a frame directory with. The native decoder is not ported yet:
+    ``decoder="native"`` raises."""
 
     def __init__(self, frames_dir: str | Path, indices: Sequence[int],
                  resolution: Tuple[int, int] = (256, 256),

@@ -11,10 +11,12 @@ GroupNorm ``scale`` → ``weight``.
 
 ``load_sd_first_stage`` keeps the ``first_stage_model.*`` tensors of a full
 SD state dict and strips the prefix, as the reference's loader does
-(``get_percep_embeddings.py:31-46``).
+(``get_percep_embeddings.py:31-46``); ``load_torch_checkpoint`` reads that
+state dict from an SD ``.ckpt`` (``svtpu/perceptual/convert.py:113-120``).
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -104,3 +106,16 @@ def load_sd_first_stage(state_dict: Mapping) -> Dict[str, torch.Tensor]:
     prefix = PREFIX if any(k.startswith(PREFIX) for k in state_dict) else ""
     return {k[len(prefix):]: torch.as_tensor(v, dtype=torch.float32)
             for k, v in state_dict.items() if k.startswith(prefix)}
+
+
+def load_torch_checkpoint(path: str | Path) -> Dict[str, torch.Tensor]:
+    """The state dict of a ``.ckpt`` / ``.pt`` file (its ``state_dict``
+    entry where it has one, as SD's Lightning checkpoints do) on the CPU;
+    feed it to :func:`load_sd_first_stage`.
+
+    Unpickles with ``weights_only=False``, as ``svtpu``'s reader does (SD's
+    Lightning checkpoints can pickle training objects beside the weights),
+    so read only checkpoints you trust."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.get("state_dict", obj)
+    return {k: torch.as_tensor(v) for k, v in sd.items()}

@@ -1,5 +1,5 @@
 """Batched perceptual-embedding encoder on one card; the port of
-``svtpu/perceptual/embed.py:34-116``.
+``svtpu/perceptual/embed.py``.
 
 Only the AutoencoderKL runs (no UNet or CLIP); uint8 frames travel to the
 card and are normalised there; the posterior is sampled
@@ -7,13 +7,15 @@ card and are normalised there; the posterior is sampled
 its mode. Latents come back as NHWC ``[N, H/8, W/8, 4]`` float32 numpy
 arrays, scaled by ``scale_factor``.
 
-Decoding frames from image files (``load_frame_pm1``) and the directory
-precompute (``precompute_embeddings``) need a JPEG decoder and wait for the
-video-decode slice of the port.
+``load_frame_pm1`` decodes an image file as the reference does (PIL,
+imported where it is used), and ``precompute_embeddings`` turns a frame
+directory into the reference's ``{"%010d.jpg": [1, 4, h, w]}`` ``.npy``.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,19 @@ def preprocess_size(resize_wh: Tuple[int, int]) -> Tuple[int, int]:
     1280x720 → 1280x704."""
     w, h = resize_wh
     return (w - w % 32, h - h % 32)
+
+
+def load_frame_pm1(path: str, resize_wh: Tuple[int, int]) -> np.ndarray:
+    """Decode one frame the way the reference does: RGB → LANCZOS resize →
+    %32 snap → uint8 HWC (normalization to [-1,1] happens on the card)."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    img = img.resize(resize_wh, Image.LANCZOS)
+    w, h = preprocess_size(resize_wh)
+    if (w, h) != resize_wh:
+        img = img.resize((w, h), Image.LANCZOS)
+    return np.asarray(img, np.uint8)
 
 
 class PerceptualEncoder:
@@ -89,3 +104,51 @@ class PerceptualEncoder:
                 out.append(torch.clamp((x + 1.0) * 0.5, 0.0, 1.0)
                            .cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
+
+
+def precompute_embeddings(frames_dir: str | Path, out_path: str | Path,
+                          params: Mapping[str, torch.Tensor],
+                          cfg: PerceptualConfig = PerceptualConfig(),
+                          batch_size: int = 8, stochastic: bool = True,
+                          seed: int = 0, pattern: str = "*.jpg",
+                          workers: int = 16, device=None
+                          ) -> Dict[str, np.ndarray]:
+    """Frames dir → the reference's ``<video>_perceps.npy`` dict
+    ``{file name: float32 [1, 4, h, w]}``, written with ``np.save`` when
+    ``out_path`` is given.
+
+    Frames go ``max(4 * batch_size, 32)`` at a time; a pool of ``workers``
+    threads decodes chunk k+1 (``load_frame_pm1``) while the card encodes
+    chunk k, whose posterior noise is seeded by ``seed + k * chunk``. The
+    next chunk's decode is driven from a thread of its own, so that no
+    task of the pool waits on the pool.
+    """
+    frames_dir = Path(frames_dir)
+    paths = sorted(frames_dir.glob(pattern))
+    if not paths:
+        raise FileNotFoundError(f"no frames matching {pattern} in {frames_dir}")
+
+    enc = PerceptualEncoder(params, cfg, batch_size=batch_size,
+                            stochastic=stochastic, seed=seed, device=device)
+    chunk = max(enc.batch_size * 4, 32)
+    latents_parts = []
+    with ThreadPoolExecutor(max_workers=workers) as ex, \
+            ThreadPoolExecutor(max_workers=1) as ahead:
+        def decode_chunk(i):
+            return np.stack(list(ex.map(
+                lambda p: load_frame_pm1(str(p), cfg.resize_wh),
+                paths[i:i + chunk])))
+
+        pending = decode_chunk(0)
+        for i in range(0, len(paths), chunk):
+            nxt = (ahead.submit(decode_chunk, i + chunk)
+                   if i + chunk < len(paths) else None)
+            enc.seed = seed + i   # decorrelate posterior noise across chunks
+            latents_parts.append(enc.encode_frames(pending))
+            pending = nxt.result() if nxt is not None else None
+    latents = np.concatenate(latents_parts)    # [N, h, w, 4]
+    emb = {p.name: np.transpose(z, (2, 0, 1))[None].astype(np.float32)
+           for p, z in zip(paths, latents)}    # [1, 4, h, w] like reference
+    if out_path:
+        np.save(out_path, emb)                 # np.load(...).item() readable
+    return emb

@@ -1,10 +1,10 @@
 """Latent-space interpolation demo on the perceptual autoencoder; the port of
-``svtpu/perceptual/interpolate.py:17-68`` for frames given as arrays.
+``svtpu/perceptual/interpolate.py``.
 
-Encode two frames, interpolate in SD latent space, decode every step (in
-the encoder's batches). The decode runs the decoder's mid-block attention,
-so it reaches the attention kernel too. Reading the frames from image files
-waits for the video-decode slice of the port.
+Encode two frames (image paths, decoded by ``load_frame_pm1``, or uint8
+arrays), interpolate in SD latent space, decode every step (in the
+encoder's batches). The decode runs the decoder's mid-block attention, so
+it reaches the attention kernel too.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Literal
 
 import numpy as np
 
-from svtpu_torch.perceptual.embed import PerceptualEncoder
+from svtpu_torch.perceptual.embed import PerceptualEncoder, load_frame_pm1
 
 
 def lerp(a: np.ndarray, b: np.ndarray, t: float) -> np.ndarray:
@@ -35,17 +35,20 @@ def slerp(a: np.ndarray, b: np.ndarray, t: float,
     return (np.sin((1 - t) * theta) / s) * a + (np.sin(t * theta) / s) * b
 
 
-def interpolate_images(encoder: PerceptualEncoder, image_a: np.ndarray,
-                       image_b: np.ndarray, steps: int = 8,
+def interpolate_images(encoder: PerceptualEncoder,
+                       image_a: str | Path | np.ndarray,
+                       image_b: str | Path | np.ndarray, steps: int = 8,
                        mode: Literal["lerp", "slerp"] = "slerp",
                        out_path: str | Path | None = None) -> np.ndarray:
-    """Two uint8 ``[H, W, 3]`` frames → ``[steps, H, W, 3]`` decoded pixels
-    in [0, 1]; with ``out_path``, also a strip of the steps as an image."""
-    if not all(isinstance(x, np.ndarray) for x in (image_a, image_b)):
-        raise NotImplementedError(
-            "interpolate_images takes frames as arrays; decoding image "
-            "files is not ported to svtpu_torch yet")
-    za, zb = encoder.encode_frames(np.stack([image_a, image_b]))
+    """Two frames (image paths, or uint8 ``[H, W, 3]`` arrays) →
+    ``[steps, H, W, 3]`` decoded pixels in [0, 1]; with ``out_path``, also a
+    strip of the steps as an image (needs matplotlib)."""
+    def load(x):
+        if isinstance(x, (str, Path)):
+            return load_frame_pm1(str(x), encoder.cfg.resize_wh)
+        return np.asarray(x)
+
+    za, zb = encoder.encode_frames(np.stack([load(image_a), load(image_b)]))
     interp = slerp if mode == "slerp" else lerp
     ts = np.linspace(0.0, 1.0, steps)
     zs = np.stack([interp(za, zb, float(t)) for t in ts])

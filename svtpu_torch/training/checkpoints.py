@@ -6,6 +6,10 @@ model's and the optimizer's state dicts) and a ``.json`` of its meta: the
 epoch, the metric and whatever the caller adds (the trainer: the selection
 key, the best metric and key so far, the Hamming vector and the global
 step, which ``Trainer.train(resume=True)`` reads back).
+
+``save_params_npz`` (``svtpu/training/checkpoints.py:94-108``) exports a
+model's weights in ``svtpu``'s single-file layout, which both packages'
+``load_params_npz`` read.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import json
 from pathlib import Path
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 
@@ -82,3 +87,23 @@ class BestCheckpointer:
 
     def exists(self, name: str = "best") -> bool:
         return (self.directory / f"{name}.pt").exists()
+
+
+def save_params_npz(state_dict, cfg, path: str | Path) -> None:
+    """A port model's state dict → ``svtpu``'s npz export: its
+    ``{"params": ...}`` tree (``models.convert.to_jax_params``) under
+    '/'-joined keys, compressed, as ``svtpu``'s ``save_params_npz``
+    writes it (e.g. ``results/p_hardened_params.npz``)."""
+    from svtpu_torch.models.convert import to_jax_params
+
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = v
+
+    walk(to_jax_params(state_dict, cfg), "")
+    np.savez_compressed(path, **flat)

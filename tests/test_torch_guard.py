@@ -47,7 +47,8 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_nothing_of_svtpu():
     files = _port_files()
     names = {f.relative_to(ROOT).as_posix() for f in files}
-    assert {"svtpu_torch/ops/attention.py",
+    assert {"svtpu_torch/cli.py",
+            "svtpu_torch/ops/attention.py",
             "svtpu_torch/models/autoencoder_kl.py",
             "svtpu_torch/perceptual/convert.py",
             "svtpu_torch/perceptual/embed.py",

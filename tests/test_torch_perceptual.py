@@ -104,8 +104,16 @@ def test_interpolate_images_matches_jax(mode, tmp_path):
     assert got.shape == ref.shape == (4, 64, 96, 3)
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4)
     assert (tmp_path / "interp.png").exists()
-    with pytest.raises(NotImplementedError):
-        interpolate_images(tenc, "a.jpg", b)
+    # Image paths: lossless files at the SD input size decode to the same
+    # frames, so the same pixels come out.
+    from PIL import Image
+
+    paths = [tmp_path / f"{n}.png" for n in "ab"]
+    for p, f in zip(paths, (a, b)):
+        Image.fromarray(f).save(p)
+    np.testing.assert_array_equal(
+        interpolate_images(tenc, str(paths[0]), paths[1], steps=4,
+                           mode=mode), got)
 
 
 def test_lerp_slerp_endpoints():
