@@ -57,7 +57,16 @@ on and their launches counted:
     protocols, ``eval-tradeoff``), one command again in a subprocess; its
     ``encode`` and ``embed`` held bit for bit against the library calls,
     ``flash_attention``'s launches exact and every other kernel's 0 (the
-    CLI keeps ``svtpu``'s kernel defaults), and each command's wall time.
+    CLI keeps ``svtpu``'s kernel defaults), and each command's wall time;
+  * the video path: ``run_video`` of the flagship (both kernels) on a
+    seeded 480-frame 432x768 MJPG AVI decoded by cv2, its launches exact
+    and its codes held against ``run_frames`` on the same decoded batches
+    bit for bit, a missing file raising ``OSError``, the CLI's ``encode`` of
+    the video; the int8 trunk's accumulators against their plain version
+    and its code match, conv0 by space-to-depth and the decoder by
+    depth-to-space against the direct convs, timed; and ``train --multi``
+    with the ``multi-video`` preset, ``eval-hamming --multi`` and
+    ``eval-consistency --multi`` on two seeded JPEG videos.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -136,6 +145,15 @@ TRAIN_EPOCHS = 3
 # svtpu's train metric names for the flagship preset.
 TRAIN_METRICS = {"total_loss", "recon_loss", "kl_loss", "contrast_loss",
                  "l1_loss", "temperature"}
+# The video path: an MJPG AVI of chinese_chess's 480 frames at the main
+# path's large frame size, decoded in run_video's default batches of 64.
+VIDEO_HW = (432, 768)
+VIDEO_BATCH = 64
+# The card's host has g++ but neither libav nor libjpeg (headers or
+# libraries), so the native IO library does not build there (PERF.md §6):
+# run_video decodes with cv2 on the card (it takes the native reader only
+# where that library is built), and the native cases run in the CPU tests
+# only.
 
 
 def card_line() -> str:
@@ -1103,13 +1121,13 @@ def train_video():
     return meta, splits, ids, states
 
 
-def video_frames(meta, states) -> np.ndarray:
-    """``train_video()``'s frames as uint8 256x256 RGB, seeded: a base
-    colour per state plus noise."""
-    rng = np.random.default_rng(11)
+def video_frames(meta, states, hw=(256, 256), seed=11) -> np.ndarray:
+    """``train_video()``'s frames as uint8 RGB of size ``hw``, seeded: a
+    base colour per state plus noise."""
+    rng = np.random.default_rng(seed)
     base = rng.integers(0, 216, (meta.num_states, 1, 1, 3), np.uint8)
-    return base[states] + rng.integers(0, 40, (len(states), 256, 256, 3),
-                                       np.uint8)
+    return base[states] + rng.integers(0, 40, (len(states),) + tuple(hw)
+                                       + (3,), np.uint8)
 
 
 def train_step_flops(cfg, frames: int) -> float:
@@ -2035,6 +2053,477 @@ def phase_cli_path(card: str) -> dict:
     return {"launches": total, "encode_fps": n_all / enc_wall}
 
 
+def write_video(path: Path, frames: np.ndarray, fps: float = 30.0) -> None:
+    """``frames`` as an MJPG AVI, written by cv2."""
+    import cv2
+
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"),
+                             fps, (w, h))
+    require(writer.isOpened(), "video path: cv2 cannot write MJPG AVI")
+    for f in frames:
+        writer.write(f)
+    writer.release()
+
+
+def padded_batches(frames: np.ndarray, batch: int) -> list:
+    """``run_video``'s batches of decoded frames: the last padded with
+    copies of its last frame."""
+    out = []
+    for i in range(0, len(frames), batch):
+        b = frames[i:i + batch]
+        out.append(np.concatenate([b, np.repeat(b[-1:], batch - len(b), 0)]))
+    return out
+
+
+def host_libraries() -> str:
+    """What the card's host has for the native IO library: g++, and the
+    libav / libjpeg headers and shared libraries (found or not)."""
+    import glob
+    import shutil
+
+    def found(pattern):
+        return bool(glob.glob(pattern, recursive=True))
+
+    heads = {h: found(f"/usr/include/**/{h}") or found(
+        f"/usr/local/include/**/{h}")
+        for h in ("libavcodec/avcodec.h", "libavformat/avformat.h",
+                  "libswscale/swscale.h", "jpeglib.h")}
+    libs = {lib: found(f"/usr/lib/**/lib{lib}.so*") or found(
+        f"/usr/local/lib/**/lib{lib}.so*")
+        for lib in ("avcodec", "avformat", "avutil", "swscale", "jpeg")}
+    return (f"g++ {shutil.which('g++')}, headers {heads}, shared libraries "
+            f"{libs}")
+
+
+def phase_video_path(card: str) -> dict:
+    """The video slice on the card.
+
+      * ``VideoSymbolPipeline.run_video`` of the flagship (both kernels,
+        bf16, batch 64) on a seeded MJPG AVI of 480 frames at 432x768
+        written by cv2, decoded by cv2 (the card's host cannot build the
+        native library: the phase prints its host line), noisy, with
+        ``noise=False`` and with ``limit=100``; launches exact (8
+        ``fused_conv01`` and 8 ``lstm_binary_concrete`` a run, 2 each
+        for the limit); the codes equal ``run_frames`` on the same decoded
+        batches bit for bit, the noisy ones with ``batch_index`` the batch
+        ordinal; a missing file raises ``OSError`` within 10 s; the CLI's
+        ``encode <video.avi>`` writes 480 codes, equal to the plain route's
+        ``run_frames`` with the same seeds;
+      * the int8 trunk at B = 512 (its int32 accumulators equal the plain
+        version's exactly; its codes against the bf16 plain route's, on 512
+        seeded frames and on the evaluation cell's 396); conv0 by
+        space-to-depth against cuDNN's direct conv at B = 512; the decoder by
+        depth-to-space against ``conv_transpose2d`` at the flagship train
+        shape, forward and backward;
+      * ``train --preset multi-video --multi a=... --multi b=...`` (2
+        epochs) on two seeded 256x256 JPEG videos of ``chinese_chess``'s
+        geometry, its frame bank on the card as one tensor, then
+        ``eval-hamming --multi`` (10 global states, 9 adjacent pairs) and
+        ``eval-consistency --multi --trials 2``.
+
+    Every time is printed beside the card's name and power limit."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+
+    import svtpu_torch.training.trainer as trainer_mod
+    from svtpu_torch import cli
+    from svtpu_torch.data.frames import iter_frames_cv2, video_info
+    from svtpu_torch.data.segments import assign_label
+    from svtpu_torch.data.symbols import SymbolStore
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+    from svtpu_torch.training.checkpoints import BestCheckpointer
+
+    t_phase = time.perf_counter()
+    counters = {"fused_conv01": fused_conv01,
+                "lstm_binary_concrete": lstm_binary_concrete,
+                "binary_concrete": binary_concrete_fused,
+                "flash_attention": flash_attention}
+    total = dict.fromkeys(counters, 0)
+
+    def counted(fn, want, what):
+        """``fn()`` with every count set to 0 before it; its launches must
+        equal ``want`` (the others 0). Returns its result and wall s."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        for k, v in got.items():
+            total[k] += v
+        want = dict(dict.fromkeys(counters, 0), **want)
+        print(f"video path: {what}: {wall:.3f} s, launches {got} [{card}]")
+        require(got == want, f"video path: {what}: launches {got}, "
+                f"expected {want}")
+        return out, wall
+
+    print(f"video path: the card's host for the native IO library: "
+          f"{host_libraries()}")
+    print("video path: native IO library: not built on this host (it has "
+          "no libav / libjpeg to link): run_video decodes with cv2 and "
+          "FrameStore with PIL here; the native reader's and decoder's card "
+          "run waits for those libraries (ROADMAP §A.4); their cases run "
+          "in the CPU tests")
+    from svtpu_torch.data import native
+
+    require(importlib.util.find_spec("cv2") is not None,
+            "video path: cv2 is missing on the card's host")
+    require(not native.available(), "video path: a native IO library is "
+            "built here; this phase is written for cv2 decode")
+    meta = train_video()[0]
+    n_all = meta.last_frame + 1
+    all_states = np.asarray([assign_label(i, meta.flags)
+                             for i in range(n_all)])
+    cfg, sd = flagship(True)
+    per_run = -(-n_all // VIDEO_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        video = d / "chinese_chess.avi"
+        t0 = time.perf_counter()
+        # Noise in 2x2 blocks: a quarter of the draws, and an MJPG stream
+        # nearer a camera's than per-pixel noise.
+        half = (VIDEO_HW[0] // 2, VIDEO_HW[1] // 2)
+        write_video(video, video_frames(meta, all_states, half, seed=21)
+                    .repeat(2, axis=1).repeat(2, axis=2))
+        info = video_info(video)
+        print(f"video path: wrote {n_all} seeded {VIDEO_HW[0]}x{VIDEO_HW[1]} "
+              f"frames as MJPG AVI ({video.stat().st_size / 2 ** 20:.1f} "
+              f"MiB) in {time.perf_counter() - t0:.2f} s; cv2 reads {info}")
+        require(info["frames"] == n_all
+                and (info["height"], info["width"]) == VIDEO_HW,
+                "video path: cv2 does not read back the MJPG AVI it wrote")
+
+        noisy = VideoSymbolPipeline(cfg, sd)
+        det = VideoSymbolPipeline(cfg, sd, noise=False)
+        both = {"fused_conv01": per_run, "lstm_binary_concrete": per_run}
+        codes, video_s = counted(lambda: noisy.run_video(str(video)), both,
+                                 f"run_video noisy ({n_all} frames)")
+        det_codes, det_s = counted(lambda: det.run_video(str(video)), both,
+                                   "run_video noise=False")
+        lim, _ = counted(lambda: noisy.run_video(str(video), limit=100),
+                         {"fused_conv01": 2, "lstm_binary_concrete": 2},
+                         "run_video limit=100")
+        for z in (codes, det_codes):
+            require(z.shape == (n_all, LATENT) and z.dtype == np.uint8
+                    and set(np.unique(z)) <= {0, 1},
+                    "video path: codes' shape or values")
+        require(np.array_equal(lim, codes[:100]),
+                "video path: limit=100 differs from the first 100 codes")
+
+        # A missing file: OSError in the caller within 10 s.
+        err = {}
+
+        def missing():
+            try:
+                noisy.run_video(str(d / "missing.avi"))
+            except Exception as e:  # recorded, checked below
+                err["e"] = e
+
+        def run_missing():
+            th = threading.Thread(target=missing, daemon=True)
+            th.start()
+            th.join(10)
+            return th.is_alive()
+
+        alive, miss_s = counted(run_missing, {}, "run_video of a missing file")
+        require(not alive and isinstance(err.get("e"), OSError),
+                f"video path: a missing file gave {err.get('e')!r} "
+                f"(still running: {alive}), not OSError within 10 s")
+
+        # The same decoded frames through run_frames, batch by batch.
+        t0 = time.perf_counter()
+        frames = np.stack(list(iter_frames_cv2(video)))
+        decode_s = time.perf_counter() - t0
+        batches = padded_batches(frames, VIDEO_BATCH)
+        require(len(batches) == per_run, "video path: batch count")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lib = np.concatenate([noisy.run_frames(b, batch_index=i)
+                              for i, b in enumerate(batches)])[:n_all]
+        encode_s = time.perf_counter() - t0
+        lib_det = np.concatenate([det.run_frames(b)
+                                  for b in batches])[:n_all]
+        require(np.array_equal(det_codes, lib_det), "video path: run_video "
+                "noise=False differs from run_frames on the decoded frames")
+        require(np.array_equal(codes, lib), "video path: noisy run_video "
+                "differs from run_frames(batch, batch_index=ordinal)")
+        by_first = np.concatenate([noisy.run_frames(
+            b, batch_index=i * VIDEO_BATCH)
+                                   for i, b in enumerate(batches)])[:n_all]
+        print(f"check video path: {n_all} codes of dim {LATENT}; run_video "
+              f"equals run_frames on the same decoded batches bit for bit "
+              f"(noise=False, and noisy with batch_index = the batch "
+              f"ordinal); seeding by the first frame's index instead agrees "
+              f"on {float((by_first == codes).mean()):.4f} of bits; limit=100 "
+              f"= the first 100 codes; a missing file raised "
+              f"{type(err['e']).__name__} after {miss_s:.3f} s; share of "
+              f"ones {codes.mean():.3f}")
+        print(f"time: run_video, {n_all} {VIDEO_HW[0]}x{VIDEO_HW[1]} MJPG "
+              f"frames (file -> codes on the host), batch {VIDEO_BATCH}, "
+              f"bf16, both kernels, cv2 decode: noisy "
+              f"{video_s:.3f} s ({n_all / video_s:.1f} frames/s), noise=False "
+              f"{det_s:.3f} s ({n_all / det_s:.1f} frames/s); decode alone "
+              f"(iter_frames_cv2) {decode_s:.3f} s ({n_all / decode_s:.1f} "
+              f"frames/s); encode alone ({per_run} run_frames) "
+              f"{encode_s:.3f} s ({n_all / encode_s:.1f} frames/s); native "
+              f"decoder: not measured (not built on this host) [{card}]")
+
+        # The CLI's encode of the video file, no --device.
+        ckpt = d / "flagship_ckpt"
+        BestCheckpointer(ckpt).save({"model": sd, "optimizer": {}}, epoch=0,
+                                    metric=0.0)
+        buf = io.StringIO()
+        out_npz = d / "sym.npz"
+        with contextlib.redirect_stdout(buf):
+            _, cli_s = counted(lambda: cli.main(
+                ["encode", str(video), "--ckpt", str(ckpt), "--out",
+                 str(out_npz), "--video", "chinese_chess"]), {},
+                "cli encode <video.avi>")
+        print(buf.getvalue().strip())
+        sym = SymbolStore.load(out_npz)
+        plain = VideoSymbolPipeline(*flagship(False))
+        want = np.concatenate([plain.run_frames(b, batch_index=i)
+                               for i, b in enumerate(batches)])[:n_all]
+        require(len(sym) == n_all and sym.codes.shape == (n_all, LATENT)
+                and np.array_equal(sym.labels, all_states),
+                "video path: cli encode's SymbolStore")
+        require(np.array_equal(sym.codes, want), "video path: cli encode "
+                "<video> differs from the plain route's run_frames with the "
+                "same batch seeds")
+        print(f"check video path: cli encode <video.avi> wrote {n_all} codes "
+              f"with their labels, equal to the plain route's run_frames "
+              f"(the CLI keeps svtpu's kernel defaults) bit for bit; time "
+              f"{cli_s:.3f} s ({n_all / cli_s:.1f} frames/s) [{card}]")
+        del frames, batches
+
+        trunk = trunk_variants(card, sd)
+
+        # Multi-video training and evaluation through the CLI.
+        ff = d / "transition_flags.txt"
+        flags_line = (f"[{', '.join(map(str, meta.flags))}], last_frame = "
+                      f"{meta.last_frame}, grey_out = {meta.grey_out}\n")
+        ff.write_text(f"a:\n{flags_line}b:\n{flags_line}")
+        dirs = []
+        t0 = time.perf_counter()
+        for name, seed in (("a", 31), ("b", 32)):
+            dirs.append(d / name)
+            write_jpegs(dirs[-1], video_frames(meta, all_states, seed=seed))
+        print(f"multi-video: wrote 2 x {n_all} seeded 256x256 JPEGs in "
+              f"{time.perf_counter() - t0:.1f} s")
+        multi = ["--multi", f"a={dirs[0]}", "--multi", f"b={dirs[1]}",
+                 "--flags-file", str(ff)]
+        mckpt = d / "multi_ckpt"
+        made = []
+
+        class Recording(trainer_mod.Trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        walls = {}
+        saved = trainer_mod.Trainer
+        trainer_mod.Trainer = Recording
+        try:
+            for what, argv in (
+                    ("train", ["train", "--preset", "multi-video", *multi,
+                               "--epochs", "2", "--save-path", str(mckpt)]),
+                    ("eval-hamming", ["eval-hamming", *multi, "--ckpt",
+                                      str(mckpt), "--latent-dim", "25",
+                                      "--out-dir", str(d / "mh")]),
+                    ("eval-consistency", [
+                        "eval-consistency", *multi, "--ckpt", str(mckpt),
+                        "--latent-dim", "25", "--trials", "2", "--out-dir",
+                        str(d / "mc")])):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    _, walls[what] = counted(lambda: cli.main(argv), {},
+                                             f"cli {what} --multi")
+                lines = [ln for ln in buf.getvalue().splitlines() if ln]
+                print(f"  {what} --multi output: {lines[-3:]}")
+        finally:
+            trainer_mod.Trainer = saved
+        require(len(made) == 1, "multi-video: one Trainer expected")
+        bank, subs = made[0]._bank, made[0].store.stores
+        require(bank is not None and bank.device.type == "cuda"
+                and bank.numel() == sum(s.array.size for s in subs)
+                and tuple(bank.shape) == (2 * n_all, 256, 256, 3),
+                f"multi-video: the bank is not one card tensor of both "
+                f"videos ({None if bank is None else tuple(bank.shape)})")
+        ham = (d / "mh" / "hamming.csv").read_text().strip().splitlines()
+        require(len(ham) == 1 + 9, f"multi-video: eval-hamming wrote "
+                f"{len(ham)} rows, expected 1 + 9 (10 global states)")
+        require((d / "mc" / "consistency.csv").exists(),
+                "multi-video: eval-consistency wrote no CSV")
+        print(f"check multi-video: the bank is one {bank.dtype} tensor "
+              f"{tuple(bank.shape)} on {bank.device} "
+              f"({bank.numel() / 2 ** 20:.1f} MiB, the sum of both videos'); "
+              f"eval-hamming's CSV has 1 + 9 rows; times: train 2 epochs "
+              f"{walls['train']:.2f} s, eval-hamming "
+              f"{walls['eval-hamming']:.2f} s, eval-consistency --trials 2 "
+              f"{walls['eval-consistency']:.2f} s [{card}]")
+    print(f"video path: phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total} [{card}]")
+    return {"launches": total, "int8": trunk}
+
+
+def trunk_variants(card: str, sd) -> dict:
+    """int8, s2d and d2s on the card against their direct routes: errors in
+    f32 (TF32 off), times in bf16."""
+    from svtpu_torch.config import rbvae_variant
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.ops import conv as conv_ops
+
+    bf16 = torch.bfloat16
+
+    def model(dtype="bfloat16", **flags):
+        cfg = rbvae_variant("contrastive", LATENT, compute_dtype=dtype,
+                            **flags)
+        m = Seq2SeqBinaryVAE(cfg)
+        m.load_state_dict(sd)
+        return m
+
+    int8 = model(int8_trunk=True, pallas_sampler=True)
+    plain = model()
+    kernel = model(pallas_trunk=True, pallas_sampler=True)
+    rng = np.random.default_rng(41)
+    x = (torch.from_numpy(rng.integers(0, 256, (BATCH, 256, 256, 3),
+                                       np.uint8)).cuda().float() / 255.0)
+    meta, _, _, states = train_video()
+    x_eval = (torch.from_numpy(video_frames(meta, states)).cuda().float()
+              / 255.0)
+    acc_fn = conv_ops.int8_conv_accumulate
+    with torch.inference_mode():
+        # conv1's and conv2's int32 accumulators on the int8 route's own
+        # inputs: the tensor-core GEMM route against the plain f32 conv.
+        convs = int8.encoder_cnn.convs()
+        h = convs[0](x.to(bf16).permute(0, 3, 1, 2), bf16).relu()
+        accs = []
+        for i, c in enumerate(convs[1:], 1):
+            xq, kq, _, _ = conv_ops.int8_quantize(h, c.weight)
+            acc = acc_fn(xq, kq, 2, 1)
+            ref = conv_ops.int8_conv_accumulate_plain(xq, kq, 2, 1)
+            require(torch.equal(acc, ref), f"int8: conv{i}'s int32 "
+                    f"accumulators differ from the plain version's")
+            accs.append((tuple(acc.shape), int(acc.abs().max())))
+            h = conv_ops.conv2d_int8(h, c.weight, c.bias, 2, 1, bf16)
+            if i < len(convs) - 1:
+                h = h.relu()
+        print(f"check int8 trunk: conv1's and conv2's int32 accumulators "
+              f"(shape, max |acc|: {accs}) equal the plain version's (f32 "
+              f"conv, TF32 off) exactly, B={BATCH}")
+        # Where conv1's int8 time goes, stage by stage.
+        c1 = convs[1]
+        h0 = convs[0](x.to(bf16).permute(0, 3, 1, 2), bf16).relu()
+        xq, kq, asc, ksc = conv_ops.int8_quantize(h0, c1.weight)
+        acc = conv_ops._int8_conv_gemm(xq, kq, 2, 1)
+        stages = {
+            "quantise": lambda: conv_ops.int8_quantize(h0, c1.weight),
+            "im2col + _int_mm": lambda: conv_ops._int8_conv_gemm(
+                xq, kq, 2, 1),
+            "dequantise + bias": lambda: (
+                acc.float() * (asc * ksc).view(1, -1, 1, 1)).to(bf16)
+            + c1.bias.to(bf16).view(1, -1, 1, 1),
+            "the direct bf16 conv (cuDNN)": lambda: F.conv2d(
+                h0, c1.weight.to(bf16), None, 2, 1)}
+        split = {k: cuda_ms(f, warmup=2, trials=3, iters=3)[0]
+                 for k, f in stages.items()}
+        print("time: int8 conv1 at B=512 by stage: " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{card}]")
+        del h0, xq, acc
+        match = {}
+        for name, xs in (("512 seeded frames", x),
+                         ("396 eval-cell frames", x_eval)):
+            acc_fn.launches = 0
+            a = int8.encode(xs[:, None], TEMPERATURE, True)
+            require(acc_fn.launches == 2, "int8: model.encode took the "
+                    f"GEMM route {acc_fn.launches} times, expected 2")
+            b = plain.encode(xs[:, None], TEMPERATURE, True)
+            match[name] = float((a == b).float().mean())
+        times = {}
+        for name, m in (("int8 (conv1, conv2 int8; sampler kernel)", int8),
+                        ("bf16 plain", plain),
+                        ("fused_conv01 + lstm_binary_concrete", kernel)):
+            times[name] = cuda_ms(lambda: m.encode(
+                x[:, None], TEMPERATURE, True), warmup=3, iters=5)
+    print(f"check int8 trunk: deterministic code match against the bf16 "
+          f"plain route {match} (svtpu/config.py:190-198 asks for this rate "
+          f"per checkpoint; no limit is set)")
+    print(f"time: model.encode, B={BATCH}, bf16, deterministic: " + "; ".join(
+        f"{k} {ms:.3f} ms (spread {sp:.3f})" for k, (ms, sp) in times.items())
+        + f" [{card}]")
+
+    # conv0 by space-to-depth against cuDNN's direct conv, B=512.
+    w0 = plain.encoder_cnn.convs()[0].weight
+    xc = x.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        errs = {}
+        for dt in (torch.float32, bf16):
+            direct = F.conv2d(xc.to(dt), w0.to(dt), None, 2, 1).float()
+            s2d = conv_ops.conv_s2d_k3s2p1(xc.to(dt), w0.to(dt)).float()
+            errs[dt] = (float((s2d - direct).abs().max()),
+                        float(direct.abs().max()))
+        xb, wb = xc.to(bf16), w0.to(bf16)
+        t_direct = cuda_ms(lambda: F.conv2d(xb, wb, None, 2, 1))
+        t_s2d = cuda_ms(lambda: conv_ops.conv_s2d_k3s2p1(xb, wb))
+    e32, scale = errs[torch.float32]
+    require(e32 <= 1e-5 * scale, f"s2d: f32 max abs err {e32} against the "
+            f"direct conv (limit {1e-5 * scale})")
+    print(f"time: conv0 3->64 k3/s2/p1, B={BATCH}, bf16: direct (cuDNN) "
+          f"{t_direct[0]:.3f} ms (spread {t_direct[1]:.3f}), space-to-depth "
+          f"{t_s2d[0]:.3f} ms (spread {t_s2d[1]:.3f}); s2d max abs err "
+          f"against direct: f32 {e32:.3e} (limit {1e-5 * scale:.3e}), bf16 "
+          f"{errs[bf16][0]:.3e} [{card}]")
+
+    # The decoder by depth-to-space at the flagship train shape.
+    n = 2 * FLAGSHIP_TRAIN["batch_size"] * 5
+    z = torch.from_numpy(rng.uniform(0, 1, (n, LATENT)).astype(
+        np.float32)).cuda()
+
+    def fwd_bwd(m):
+        m.zero_grad(set_to_none=True)
+        y = m.decoder_cnn(z)
+        y.float().square().mean().backward()
+        return y.detach().float(), {k: p.grad.float() for k, p in
+                                    m.decoder_cnn.named_parameters()}
+
+    errs = {}
+    for dt in ("float32", "bfloat16"):
+        (yd, gd), (y2, g2) = (fwd_bwd(model(dt, deconv_d2s=flag))
+                              for flag in (False, True))
+        errs[dt] = (float((y2 - yd).abs().max()), max(
+            float((g2[k] - g).abs().max()) / max(float(g.abs().max()),
+                                                 1e-30)
+            for k, g in gd.items()))
+    require(errs["float32"][0] <= 1e-5 and errs["float32"][1] <= 1e-4,
+            f"d2s: f32 output err {errs['float32'][0]}, relative gradient "
+            f"err {errs['float32'][1]}")
+    t_fwd, t_bwd = {}, {}
+    for k, m in (("direct", plain), ("d2s", model(deconv_d2s=True))):
+        with torch.no_grad():
+            t_fwd[k] = cuda_ms(lambda: m.decoder_cnn(z), warmup=3)
+        t_bwd[k] = cuda_ms(lambda: m.decoder_cnn(z).float().square()
+                           .mean().backward(), warmup=3, iters=5)
+    print(f"time: decoder (fc + 3 transposed convs) at the flagship train "
+          f"shape [{n}, {LATENT}] -> [{n}, 256, 256, 3], bf16: forward "
+          f"direct {t_fwd['direct'][0]:.3f} ms, d2s {t_fwd['d2s'][0]:.3f} "
+          f"ms; forward+backward direct {t_bwd['direct'][0]:.3f} ms, d2s "
+          f"{t_bwd['d2s'][0]:.3f} ms; d2s against direct: max abs err of the "
+          f"output, and largest gradient error over its tensor's max: f32 "
+          f"{errs['float32'][0]:.3e}, {errs['float32'][1]:.3e} (limits 1e-5, "
+          f"1e-4); bf16 {errs['bfloat16'][0]:.3e}, "
+          f"{errs['bfloat16'][1]:.3e} [{card}]")
+    return {"match": match, "ms": {k: v[0] for k, v in times.items()}}
+
+
 def attention_library(q, k, v):
     """One PyTorch call computing the same attention, and its backend:
     ``F.scaled_dot_product_attention`` on ``[B, 1, N, D]`` with the first
@@ -2086,11 +2575,12 @@ def instance(symbol: str) -> str:
 
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
                        percep: dict, simple: dict, wide: dict,
-                       train: dict, evaluation: dict, cli: dict) -> list:
+                       train: dict, evaluation: dict, cli: dict,
+                       video: dict) -> list:
     """Each kernel's row of the kernels line: its time, its plain
     version's, a library call's where one computes the same function, its
-    bound, and its launches on every path of this run (the evaluation and
-    command-line phases' included)."""
+    bound, and its launches on every path of this run (the evaluation,
+    command-line and video phases' included)."""
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
@@ -2124,7 +2614,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
         launches=sum(d["launches"]["fused_conv01"]
-                     for d in (main, wide, train, cli))
+                     for d in (main, wide, train, cli, video))
         + eval_launches("fused_conv01"),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
@@ -2140,7 +2630,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"{wide['launches']['fused_conv01']}, train probes "
           f"{train['launches']['fused_conv01']}, evaluation "
           f"{eval_launches('fused_conv01')}, cli "
-          f"{cli['launches']['fused_conv01']}) [{card}]")
+          f"{cli['launches']['fused_conv01']}, video "
+          f"{video['launches']['fused_conv01']}) [{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
@@ -2159,7 +2650,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
              "bytes": 2 * 2 * n / PEAK_BYTES * 1e3}
     launches = {k: d["launches"]["binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("simple", simple),
-                 ("wide", wide), ("cli", cli))}
+                 ("wide", wide), ("cli", cli), ("video", video))}
     launches["evaluation"] = eval_launches("binary_concrete")
     rows.append(dict(
         name="binary_concrete", route="cuda",
@@ -2207,7 +2698,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
              if "lstm_binary_concrete_kernel" in fn}
     launches = {k: d["launches"]["lstm_binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("train", train),
-                 ("cli", cli))}
+                 ("cli", cli), ("video", video))}
     launches["percep train"] = \
         train["percep_launches"]["lstm_binary_concrete"]
     launches["evaluation"] = eval_launches("lstm_binary_concrete")
@@ -2257,7 +2748,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         replaces="svtpu/ops/attention.py:26",
         launches=percep["launches"]["flash_attention"]
         + eval_launches("flash_attention")
-        + cli["launches"]["flash_attention"],
+        + cli["launches"]["flash_attention"]
+        + video["launches"]["flash_attention"],
         max_abs_err=errs["flash_attention"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
@@ -2271,7 +2763,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"launches on the percep path "
           f"{percep['launches']['flash_attention']}, evaluation "
           f"{eval_launches('flash_attention')}, cli "
-          f"{cli['launches']['flash_attention']} [{card}]")
+          f"{cli['launches']['flash_attention']}, video "
+          f"{video['launches']['flash_attention']} [{card}]")
     return rows
 
 
@@ -2298,8 +2791,9 @@ def main() -> None:
     train = phase_train_path(card)
     evaluation = phase_eval_path(card)
     cli = phase_cli_path(card)
+    video = phase_video_path(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
-                              wide, train, evaluation, cli)
+                              wide, train, evaluation, cli, video)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "

@@ -2,8 +2,11 @@
 counterpart of ``python -m svtpu.cli`` (``svtpu/cli.py``), with the same
 commands, flags, defaults and train presets.
 
-  encode           frame dir + trained ckpt → packed symbols npz
-  train            train an RBVAE variant (``--preset`` for a measured recipe)
+  extract          video → frame dir (cv2, native, pyav or decord backend)
+  convert          video container / codec conversion (OpenCV's writer)
+  encode           video file or frame dir + trained ckpt → packed symbols npz
+  train            train an RBVAE variant (``--preset`` for a measured recipe;
+                   ``--multi`` for several videos on one state axis)
   embed            frames → perceptual embeddings .npy (SD first stage)
   interpolate      SD latent interpolation demo
   eval-consistency / eval-hamming / eval-projections / eval-probe /
@@ -21,10 +24,8 @@ written (``eval-projections`` then writes each projection's points as a
 CSV). ``eval-projections`` and ``eval-probe`` need sklearn for the fit
 itself. matplotlib, sklearn and PIL are imported only where they are used.
 
-Not ported yet, each exits naming the ROADMAP item it waits for:
-``extract``, ``convert``, ``encode`` of a video file (§A.4, video decode),
-``sweep`` and ``--multi`` (§A.6). ``download-weights`` needs the network
-and is not ported.
+Not ported yet: ``sweep``, which exits naming the ROADMAP item it waits for
+(§A.6). ``download-weights`` needs the network and is not ported.
 
 Run: ``python -m svtpu_torch.cli <command> --help``.
 """
@@ -40,7 +41,7 @@ import numpy as np
 from svtpu_torch import resolve_device
 
 # What each unported command waits for (ROADMAP.md §A).
-WAITS_FOR = {"A.4": "video decode", "A.6": "multi-video and sweeps"}
+WAITS_FOR = {"A.6": "sweeps"}
 
 
 def _waits(what: str, item: str):
@@ -87,6 +88,25 @@ def _add_device_arg(p):
                         "card the command exits unless given --device cpu")
 
 
+def _multi_setup(args):
+    """Several videos on one global state axis (``svtpu/cli.py:61-77``).
+    Each ``--multi`` spec is NAME=FRAMES_DIR; NAME resolves like
+    ``--video``. Returns ``(MultiStore, SplitIndices, labels)``."""
+    from svtpu_torch.data.datasets import FrameStore
+    from svtpu_torch.data.multi import combine_videos
+
+    specs = []
+    for spec in args.multi:
+        if "=" not in spec:
+            raise SystemExit(f"--multi needs NAME=FRAMES_DIR: {spec!r}")
+        name, frames_dir = spec.split("=", 1)
+        m = _meta_by_name(args, name)
+        fs = FrameStore(frames_dir, list(range(m.last_frame + 1)),
+                        resolution=(args.resolution, args.resolution))
+        specs.append((fs, m))
+    return combine_videos(specs, args.test_pct, args.val_pct)
+
+
 def _pixel_store(args, meta):
     from svtpu_torch.data.datasets import FrameStore
     from svtpu_torch.data.segments import split_segments
@@ -101,11 +121,14 @@ def _pixel_store(args, meta):
 
 
 def cmd_encode(args):
-    """The product operation: frame dir + trained ckpt → packed binary
-    symbol codes (SymbolStore npz). Reference protocol defaults: temp 0.2,
-    hard=True, Binary-Concrete noise on (``embedding_matching.py:264``).
-    Batch ``i`` (its first frame's index) draws its noise from
-    ``batch_seed(seed, i)``, as ``svtpu`` folds ``i`` into its key."""
+    """The product operation: video file or frame dir + trained ckpt →
+    packed binary symbol codes (SymbolStore npz). Reference protocol
+    defaults: temp 0.2, hard=True, Binary-Concrete noise on
+    (``embedding_matching.py:264``). A frame directory's batch ``i`` (its
+    first frame's index) draws its noise from ``batch_seed(seed, i)``, as
+    ``svtpu`` folds ``i`` into its key; a video file goes through
+    ``run_video``, whose batch ``b`` (its ordinal) draws from
+    ``batch_seed(seed, b)``."""
     from svtpu_torch.config import rbvae_variant
     from svtpu_torch.data.datasets import FrameStore
     from svtpu_torch.data.symbols import SymbolStore
@@ -113,26 +136,28 @@ def cmd_encode(args):
     from svtpu_torch.training.checkpoints import BestCheckpointer
 
     src = Path(args.input)
-    if not src.is_dir():
-        _waits("encode of a video file", "A.4")
     cfg = rbvae_variant(args.variant, latent_dim=args.latent_dim,
                         input_hw=(args.resolution, args.resolution),
                         compute_dtype=args.dtype, **_model_overrides(args))
     tree, _ = BestCheckpointer(args.ckpt).restore(args.which)
-    pipe = VideoSymbolPipeline(cfg, tree["model"],
+    pipe = VideoSymbolPipeline(cfg, tree["model"], batch=args.batch,
                                temperature=args.temperature, hard=True,
                                noise=not args.deterministic,
                                noise_ratio=args.noise_ratio, seed=args.seed,
                                resize_on=args.resize_on, device=args.device)
-    n = len([f for f in src.iterdir() if f.suffix == ".jpg"])
-    if args.limit:
-        n = min(n, args.limit)
-    store = FrameStore(str(src), list(range(n)), resolution=cfg.input_hw)
-    chunks = [pipe.run_frames(
-        store.gather(np.arange(i, min(i + args.batch, n))), batch_index=i)
-        for i in range(0, n, args.batch)]
-    codes = (np.concatenate(chunks) if chunks
-             else np.zeros((0, cfg.latent_dim)))
+    if src.is_dir():
+        n = len([f for f in src.iterdir() if f.suffix == ".jpg"])
+        if args.limit:
+            n = min(n, args.limit)
+        store = FrameStore(str(src), list(range(n)),
+                           resolution=cfg.input_hw)
+        chunks = [pipe.run_frames(
+            store.gather(np.arange(i, min(i + args.batch, n))),
+            batch_index=i) for i in range(0, n, args.batch)]
+        codes = (np.concatenate(chunks) if chunks
+                 else np.zeros((0, cfg.latent_dim)))
+    else:
+        codes = pipe.run_video(str(src), limit=args.limit)
     labels = None
     if args.video:
         from svtpu_torch.data.segments import assign_label
@@ -146,11 +171,18 @@ def cmd_encode(args):
 
 
 def cmd_extract(args):
-    _waits("extract", "A.4")
+    from svtpu_torch.data.frames import extract_frames
+
+    n = extract_frames(args.video_path, args.out_dir, backend=args.backend,
+                       every_n=args.every_n, limit=args.limit)
+    print(f"wrote {n} frames to {args.out_dir}")
 
 
 def cmd_convert(args):
-    _waits("convert", "A.4")
+    from svtpu_torch.data.frames import convert_video
+
+    convert_video(args.src, args.dst, fourcc=args.fourcc)
+    print(f"converted {args.src} -> {args.dst}")
 
 
 def cmd_download_weights(args):
@@ -205,7 +237,10 @@ TRAIN_PRESETS = {
         contextfree_contrast=True, margin=3.5, noise_ratio=0.3,
         eval_noise_ratio=0.1, beta_kl=0.2, alpha=4.0, select_by="combined",
         lstm_residual=True),
-    # The multi-video recipe; --multi waits for ROADMAP §A.6 in the port.
+    # The multi-video recipe, with repeatable --multi NAME=FRAMES_DIR: a
+    # higher anneal floor and min-aggregated separation, so selection
+    # cannot reward a run that merged one video's states. svtpu's caveat
+    # holds: its result did not replicate across seeds.
     "multi-video": dict(
         variant="contrastive", latent_dim=25, epochs=1500, batch_size=32,
         lr=3e-4, init_temp=2.0, final_temp=0.95, anneal_rate=3e-4,
@@ -222,14 +257,19 @@ def cmd_train(args):
     from svtpu_torch.data.segments import split_segments
     from svtpu_torch.training.trainer import Trainer
 
+    labels = None
     if getattr(args, "multi", None):
-        _waits("train --multi", "A.6")
-    meta = _video_meta(args)
-    if args.variant == "percep":
+        if args.variant != "contrastive":
+            raise SystemExit("--multi supports the contrastive variant")
+        store, splits, labels = _multi_setup(args)
+        meta = None
+    elif args.variant == "percep":
+        meta = _video_meta(args)
         store = EmbeddingStore(args.embeddings)
         splits = split_segments(meta.state_segments(), args.test_pct,
                                 args.val_pct)
     else:
+        meta = _video_meta(args)
         store, splits = _pixel_store(args, meta)
 
     input_hw = tuple(store.item_shape[:2])
@@ -268,8 +308,9 @@ def cmd_train(args):
         val_every=args.val_every,
         fused_epoch=not args.no_fused_epoch,
         log_dir=args.log_dir, seed=args.seed)
-    trainer = Trainer(mcfg, tcfg, store, splits, meta.flags,
-                      device=args.device)
+    trainer = Trainer(mcfg, tcfg, store, splits,
+                      meta.flags if meta is not None else [],
+                      labels_by_index=labels, device=args.device)
     if args.variant == "simple":
         hist = trainer.train_simple(meta.state_segments(),
                                     num_epochs=args.epochs)
@@ -396,6 +437,20 @@ def _consistency_for_model(name, args, meta):
     from svtpu_torch.data.segments import split_segments
     from svtpu_torch.evaluation.consistency import evaluate_consistency
 
+    if getattr(args, "multi", None):
+        # A multi-video checkpoint: global state labels from
+        # combine_videos.
+        store, splits, labels_map = _multi_setup(args)
+        test_idx = splits.flat("test")
+        frames01 = store.gather(np.asarray(test_idx)).astype(np.float32)
+        frames01 /= 255.0
+        bundle = _bundle(args, store)
+        bundle.name = name
+        return evaluate_consistency(
+            bundle, frames01, test_idx, [], num_trials=args.trials,
+            temperature=args.temperature,
+            labels=[labels_map[i] for i in test_idx])
+
     pixel_to_input = None
     perturb_fn = None
     embedding_input = False
@@ -494,9 +549,7 @@ def cmd_eval_consistency(args):
     ``embedding_matching.py:400-565``)."""
     from svtpu_torch.evaluation.consistency import plot_results, write_csv
 
-    if getattr(args, "multi", None):
-        _waits("eval-consistency --multi", "A.6")
-    meta = _video_meta(args)
+    meta = None if getattr(args, "multi", None) else _video_meta(args)
     results = []
     for name, ns in _model_namespaces(args):
         results.extend(_consistency_for_model(name, ns, meta))
@@ -516,18 +569,22 @@ def cmd_eval_hamming(args):
     from svtpu_torch.evaluation.hamming import (evaluate_hamming,
                                                 plot_results, write_csv)
 
-    if getattr(args, "multi", None):
-        _waits("eval-hamming --multi", "A.6")
-    meta = _video_meta(args)
+    multi = getattr(args, "multi", None)
+    meta = None if multi else _video_meta(args)
     results = {}
     for name, ns in _model_namespaces(args):
-        store, splits = _eval_store(ns, meta)
+        if multi:
+            store, splits, labels_map = _multi_setup(ns)
+        else:
+            store, splits = _eval_store(ns, meta)
         test_idx = splits.flat("test")
+        labels = [labels_map[i] for i in test_idx] if multi else None
         frames = store.gather(np.asarray(test_idx))
         bundle = _bundle(ns, store)
         results[name] = evaluate_hamming(bundle, frames, test_idx,
-                                         meta.flags,
-                                         temperature=ns.temperature)
+                                         meta.flags if meta else [],
+                                         temperature=ns.temperature,
+                                         labels=labels)
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
     write_csv(results, out / "hamming.csv")
@@ -686,8 +743,7 @@ def main(argv=None):
                                 RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("extract", help="video -> frame dir (waits for "
-                                        "ROADMAP §A.4)")
+    sp = sub.add_parser("extract", help="video -> frame dir")
     sp.add_argument("video_path")
     sp.add_argument("out_dir")
     sp.add_argument("--backend", default="cv2",
@@ -696,8 +752,7 @@ def main(argv=None):
     sp.add_argument("--limit", type=int)
     sp.set_defaults(fn=cmd_extract)
 
-    sp = sub.add_parser("convert", help="video container conversion (waits "
-                                        "for ROADMAP §A.4)")
+    sp = sub.add_parser("convert", help="video container conversion")
     sp.add_argument("src")
     sp.add_argument("dst")
     sp.add_argument("--fourcc", default="MJPG")
@@ -721,9 +776,8 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_embed)
 
     sp = sub.add_parser("encode",
-                        help="frames + ckpt -> packed symbols npz")
-    sp.add_argument("input", help="%%010d.jpg frame dir (a video file waits "
-                                  "for ROADMAP §A.4)")
+                        help="video/frames + ckpt -> packed symbols npz")
+    sp.add_argument("input", help="video file or %%010d.jpg frame dir")
     sp.add_argument("--ckpt", required=True)
     sp.add_argument("--out", default="symbols.npz")
     sp.add_argument("--which", default="best", choices=["best", "latest"])
@@ -755,7 +809,7 @@ def main(argv=None):
                          "(RESULTS.md); explicit flags override")
     sp.add_argument("--multi", action="append", metavar="NAME=FRAMES_DIR",
                     help="repeatable: several videos on one global state "
-                         "axis (waits for ROADMAP §A.6)")
+                         "axis (svtpu-only; contrastive variant)")
     _add_video_args(sp, required=False)
     sp.add_argument("--variant", default="contrastive",
                     choices=["simple", "contrastive", "percep", "triplet"])
@@ -883,7 +937,7 @@ def main(argv=None):
         sp.add_argument("--multi", action="append",
                         metavar="NAME=FRAMES_DIR",
                         help="evaluate a multi-video checkpoint on the "
-                             "global state axis (waits for ROADMAP §A.6)")
+                             "global state axis")
         sp.add_argument("--frames-dir")
         sp.add_argument("--ckpt")
         sp.add_argument("--model", action="append",

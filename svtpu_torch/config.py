@@ -139,9 +139,16 @@ class RBVAEConfig:
     pallas_trunk: bool = False
     # Accepted and ignored: the Hopper kernel picks its own tiles.
     pallas_trunk_block: int = 1
-    # Not ported yet: the model raises NotImplementedError when set.
+    # Inference ``encode`` with every encoder conv but conv0 in dynamic
+    # symmetric int8 (``ops/conv.py::conv2d_int8``); ``pallas_trunk`` wins
+    # over it. Its codes can differ from the compute dtype's: measure the
+    # code-match rate per checkpoint before relying on it.
     int8_trunk: bool = False
+    # conv0 (k3/s2/p1, even H and W) as a k2/s1 conv over 2x2
+    # space-to-depth blocks: the same parameters and result.
     conv0_s2d: bool = False
+    # Each k3/s2/p1/op1 decoder stage as a k2/s1 conv to four phases and a
+    # depth-to-space: the same parameters and result.
     deconv_d2s: bool = False
 
     @property

@@ -30,21 +30,26 @@ def _decode_frame(path: str, hw: Tuple[int, int]) -> np.ndarray:
 
 class FrameStore:
     """All frames of one video, decoded to ``[N, H, W, 3]`` uint8 from
-    ``%010d.jpg`` files by PIL (``decoder="pil"``, or ``"auto"``): what
-    ``svtpu_torch.cli``'s ``train``, ``encode`` and ``eval-*`` commands
-    read a frame directory with. The native decoder is not ported yet:
-    ``decoder="native"`` raises."""
+    ``%010d.jpg`` files: what ``svtpu_torch.cli``'s ``train``, ``encode``
+    and ``eval-*`` commands read a frame directory with.
+
+    ``decoder``: "pil" (PIL's bilinear resize, ``workers`` threads),
+    "native" (the C++ libjpeg batch decoder of ``svtpu_torch.data.native``
+    on ``workers`` threads, built on first use; its bilinear resize differs
+    from PIL's antialiased one by a few levels a pixel) or "auto" (native
+    where that library is built, else PIL), as ``svtpu``'s ``FrameStore``
+    chooses."""
 
     def __init__(self, frames_dir: str | Path, indices: Sequence[int],
                  resolution: Tuple[int, int] = (256, 256),
                  pattern: str = "{:010d}.jpg", workers: int = 16,
                  decoder: str = "auto"):
-        if decoder == "native":
-            raise NotImplementedError(
-                "the native JPEG decoder is not ported to svtpu_torch yet; "
-                "use decoder='pil'")
-        if decoder not in ("auto", "pil"):
+        if decoder not in ("auto", "pil", "native"):
             raise ValueError(f"unknown decoder {decoder!r}")
+        if decoder == "auto":
+            from svtpu_torch.data import native
+            decoder = "native" if native.available() else "pil"
+        self.decoder = decoder
         self.frames_dir = str(frames_dir)
         self.resolution = resolution
         self.indices = np.asarray(sorted(set(int(i) for i in indices)))
@@ -53,6 +58,10 @@ class FrameStore:
                  for i in self.indices]
         if not paths:
             self.array = np.zeros((0, *resolution, 3), np.uint8)
+        elif decoder == "native":
+            from svtpu_torch.data.native import decode_jpeg_batch
+            self.array = decode_jpeg_batch(paths, resolution,
+                                           threads=workers)
         else:
             with ThreadPoolExecutor(max_workers=workers) as ex:
                 frames = list(ex.map(lambda p: _decode_frame(p, resolution),

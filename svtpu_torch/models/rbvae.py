@@ -19,6 +19,11 @@ takes its LSTM (latent <= 64), and ``ops/binarize_cuda.py`` (the sampler
 alone) where it binarizes before it (simple) or after a wider LSTM, which
 runs as plain ops. The kernels' noise seed is drawn from the generator on its own
 device and stays there, so the host never waits for it.
+``int8_trunk`` (where ``pallas_trunk`` is off: the kernel wins, as in
+``svtpu``) runs every conv of the encoder but conv0 through
+``ops/conv.py::conv2d_int8``, inference only. ``conv0_s2d`` (conv0 of
+every pass, on the plain trunk) and ``deconv_d2s`` (every decoder stage)
+are exact rewrites of the same parameters, gradients included.
 
 ``forward`` with ``deterministic=False`` is the training pass: dropout
 between the encoder's convs and between the decoder's transposed convs, as
@@ -47,12 +52,11 @@ from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig
 from svtpu_torch.ops.binarize import binary_concrete
 from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
-from svtpu_torch.ops.conv import Conv2dTorch, ConvTranspose2dTorch, Dense
+from svtpu_torch.ops.conv import (Conv2dTorch, ConvTranspose2dTorch, Dense,
+                                  conv2d_int8)
 from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
 from svtpu_torch.ops.lstm import LSTM
 from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete, takes
-
-_NOT_PORTED = ("int8_trunk", "conv0_s2d", "deconv_d2s")
 
 
 class RBVAEOutput(NamedTuple):
@@ -114,11 +118,21 @@ class ConvEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, trunk: str = "torch",
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
-        """``x [N, H, W, C]`` → logits ``[N, L]``.
+        """``x [N, H, W, C]`` → logits ``[N, L]``: ``features``, then fc."""
+        h = self.features(x, trunk, dropout_seed)
+        # Flatten in torch's channel-major order, which the fc weight uses.
+        return self.fc(h.reshape(h.shape[0], -1), self.cfg.torch_dtype)
 
-        ``trunk``: "torch" (library convs) or "kernel" (the fused conv0+conv1
-        kernel, then conv2 as a library conv; 256x256 contrastive/triplet
-        geometry only; inference). ``dropout_seed``: dropout between the
+    def features(self, x: torch.Tensor, trunk: str = "torch",
+                 dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """``x [N, H, W, C]`` → the conv stack's output ``[N, C', H', W']``
+        in the compute dtype.
+
+        ``trunk``: "torch" (library convs; conv0 by space-to-depth under
+        ``cfg.conv0_s2d``), "kernel" (the fused conv0+conv1 kernel, then
+        conv2 as a library conv; 256x256 contrastive/triplet geometry only;
+        inference) or "int8" (conv0 in the compute dtype, the others by
+        ``conv2d_int8``; inference). ``dropout_seed``: dropout between the
         convs, masks drawn from a generator seeded by it; ``None`` for none.
         """
         c = self.cfg
@@ -141,18 +155,30 @@ class ConvEncoder(nn.Module):
             h = convs[2](h.permute(0, 3, 1, 2), dt)
             if c.conv_final_relu:
                 h = h.relu()
+        elif trunk == "int8":
+            if gen is not None or (torch.is_grad_enabled() and any(
+                    p.requires_grad for p in self.conv.parameters())):
+                raise ValueError("the int8 trunk is inference-only: no "
+                                 "dropout, no gradient (run it under "
+                                 "torch.no_grad())")
+            h = h.permute(0, 3, 1, 2)
+            for i, conv in enumerate(convs):
+                h = conv(h, dt) if i == 0 else conv2d_int8(
+                    h, conv.weight, conv.bias, conv.stride[0],
+                    conv.padding[0], dt)
+                if i < n - 1 or c.conv_final_relu:
+                    h = h.relu()
         elif trunk == "torch":
             h = h.permute(0, 3, 1, 2)
             for i, conv in enumerate(convs):
-                h = conv(h, dt)
+                h = conv(h, dt, s2d=i == 0 and c.conv0_s2d)
                 if i < n - 1 or c.conv_final_relu:
                     h = h.relu()
                 if i < n - 1 and gen is not None:
                     h = _dropout(h, c.conv_dropout, gen)
         else:
             raise ValueError(f"unknown trunk {trunk!r}")
-        # Flatten in torch's channel-major order, which the fc weight uses.
-        return self.fc(h.reshape(h.shape[0], -1), dt)
+        return h
 
 
 class ConvDecoder(nn.Module):
@@ -182,7 +208,7 @@ class ConvDecoder(nn.Module):
         deconvs = [m for m in self.deconv
                    if isinstance(m, ConvTranspose2dTorch)]
         for i, m in enumerate(deconvs):
-            h = m(h, dt)
+            h = m(h, dt, d2s=c.deconv_d2s)
             if i < len(deconvs) - 1:
                 h = h.relu()
                 if gen is not None:
@@ -204,10 +230,6 @@ class Seq2SeqBinaryVAE(nn.Module):
     def __init__(self, cfg: RBVAEConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        for flag in _NOT_PORTED:
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag} is not ported to svtpu_torch yet")
         dev = resolve_device(device)
         self.cfg = cfg
         dt, L = cfg.torch_dtype, cfg.latent_dim
@@ -265,7 +287,8 @@ class Seq2SeqBinaryVAE(nn.Module):
         takes (``lstm_cuda.takes``) runs the encoder LSTM and the sampler
         as one kernel, and its ``h_seq`` is ``None``; a wider one runs the
         plain LSTM, then the sampler kernel.
-        ``trunk``: "torch" or "kernel" (the fused conv0+conv1 kernel).
+        ``trunk``: "torch", "kernel" (the fused conv0+conv1 kernel) or
+        "int8" (``ConvEncoder.forward``).
         ``dropout_seed``: dropout in the conv trunk (training), or ``None``.
         """
         c = self.cfg
@@ -358,12 +381,15 @@ class Seq2SeqBinaryVAE(nn.Module):
                u: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Binarized latents ``[B, T, L]`` only. Deterministic unless a
         ``generator`` (or ``u``) is given; ``cfg.pallas_trunk`` and
-        ``cfg.pallas_sampler`` route through the hand-written kernels."""
+        ``cfg.pallas_sampler`` route through the hand-written kernels,
+        ``cfg.int8_trunk`` (without ``pallas_trunk``) through the int8
+        convs."""
         c = self.cfg
         self._require_noise_source(deterministic, generator, u)
         noise_scale = noise_ratio if c.has_noise_ratio else 1.0
         _, _, z_seq = self._encode_to_latent(
             x, temperature, hard, noise_scale, generator, u,
             sampler="kernel" if c.pallas_sampler else "torch",
-            trunk="kernel" if c.pallas_trunk else "torch")
+            trunk=("kernel" if c.pallas_trunk
+                   else "int8" if c.int8_trunk else "torch"))
         return z_seq

@@ -1,6 +1,8 @@
-"""Frames → binary-symbol serving pipeline (``svtpu/pipeline.py:30-97,
-155-180``).
+"""Video / frames → binary-symbol serving pipeline (``svtpu/pipeline.py``).
 
+  video:       ``run_video``: a producer thread decodes the file (the native
+               libav reader where it is built, else cv2) ``depth`` batches
+               ahead of the card; each batch goes through ``run_frames``
   pixel path:  uint8 frames (host) → device: → float [0,1] → bilinear
                resize → RBVAE encode (hard Binary-Concrete codes) → codes
   percep path: uint8 frames (host) → host resize to the SD input (1280x704)
@@ -8,12 +10,14 @@
                attention kernel inside) → percep RBVAE encode → codes
 
 With ``cfg.pallas_trunk`` and ``cfg.pallas_sampler`` set, the RBVAE encode
-runs through the hand-written CUDA kernels. Video decode (``run_video``) is
-a later slice of the port and raises ``NotImplementedError``.
+runs through the hand-written CUDA kernels.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import contextlib
+import queue
+import threading
+from typing import Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,6 +40,11 @@ class VideoSymbolPipeline:
       temperature / hard / noise / noise_ratio: encode protocol (defaults =
         reference eval: temperature 0.2, hard, noise on).
       seed: noise seed; batch ``i`` draws from ``batch_seed(seed, i)``.
+      batch: frames per ``run_video`` step; the last batch is padded by
+        repeating its last frame, and only its real frames' codes are kept.
+      depth: batches ``run_video`` decodes ahead of the card. It decodes
+        with the native libav reader where ``svtpu_torch.data.native`` is
+        built, else with cv2, as ``svtpu`` chooses.
       resize_on: "device" resizes on the card after transfer, as
         ``jax.image.resize`` does (antialiased); "host" resizes the uint8
         frames on the CPU first, as the reference's ``cv2.resize(...,
@@ -47,6 +56,7 @@ class VideoSymbolPipeline:
                  *, percep=None, temperature: float = 0.2,
                  hard: bool = True, noise: bool = True,
                  noise_ratio: float = 0.1, seed: int = 0,
+                 batch: int = 64, depth: int = 2,
                  resize_on: str = "device", device=None):
         if resize_on not in ("device", "host"):
             raise ValueError(f"resize_on must be 'device' or 'host': "
@@ -60,17 +70,104 @@ class VideoSymbolPipeline:
         self.noise = noise
         self.noise_ratio = noise_ratio
         self.seed = seed
+        self.batch = batch
+        self.depth = depth
         self.resize_on = resize_on
         self.percep = percep
         if percep is not None:
             w, h = preprocess_size(percep.cfg.resize_wh)
             self._sd_hw = (h, w)
 
+    def _frame_batches(self, video_path: str
+                       ) -> Iterator[tuple[np.ndarray, int]]:
+        """``(batch, valid)``: ``[batch, H, W, 3]`` uint8 frames of the
+        video, the last batch padded with copies of its last frame, and how
+        many of them are real."""
+        from svtpu_torch.data import native
+
+        def pad(frames):
+            n = len(frames)
+            if n == self.batch:
+                return frames, n
+            return np.concatenate(
+                [frames, np.repeat(frames[-1:], self.batch - n, 0)]), n
+
+        if native.available():
+            with native.VideoReader(video_path) as vr:
+                while True:
+                    frames = vr.read_batch(self.batch)
+                    if not len(frames):
+                        return
+                    yield pad(frames)
+        from svtpu_torch.data.frames import iter_frames_cv2
+
+        buf = []
+        with contextlib.closing(iter_frames_cv2(video_path)) as it:
+            for frame in it:
+                buf.append(frame)
+                if len(buf) == self.batch:
+                    yield np.stack(buf), self.batch
+                    buf = []
+        if buf:
+            yield pad(np.stack(buf))
+
     def run_video(self, video_path: str,
                   limit: Optional[int] = None) -> np.ndarray:
-        raise NotImplementedError(
-            "video decode is not ported to svtpu_torch yet; decode frames "
-            "and call run_frames")
+        """Decode and encode a whole video (its first ``limit`` frames) →
+        ``[num_frames, latent]`` codes.
+
+        A producer thread decodes ``depth`` batches ahead; batch ``b`` (its
+        ordinal: 0, 1, 2, ...) is encoded by ``run_frames(batch,
+        batch_index=b)``. An exception in the decoder (a missing or broken
+        file) is raised here, in the caller; the thread never outlives the
+        call."""
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        end = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                n = 0
+                with contextlib.closing(
+                        self._frame_batches(video_path)) as batches:
+                    for frames, valid in batches:
+                        take = valid if limit is None \
+                            else min(valid, limit - n)
+                        if take <= 0 or not put((frames, take)):
+                            break
+                        n += take
+                put(end)
+            except BaseException as e:  # handed to the caller
+                put(e)
+
+        thread = threading.Thread(target=producer, daemon=True,
+                                  name="run_video-decode")
+        thread.start()
+        out = []
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                frames, take = item
+                out.append(self.run_frames(frames, batch_index=len(out))
+                           [:take])
+        finally:
+            stop.set()
+            thread.join()
+        return np.concatenate(out) if out else np.zeros(
+            (0, self.cfg.latent_dim))
 
     def run_frames(self, frames_u8: np.ndarray,
                    batch_index: int = 0) -> np.ndarray:

@@ -119,7 +119,16 @@ def fold_lstm_biases(model: torch.nn.Module) -> None:
 
 
 def _staging_nbytes(store) -> int:
-    """Bytes of the device bank a store would stage; 0 when it cannot."""
+    """Bytes of the device bank a store would stage; 0 when it cannot. For
+    a ``MultiStore`` the sub-stores' arrays are summed without touching
+    its ``array``, which would concatenate them on the host even where
+    staging is then declined."""
+    subs = getattr(store, "stores", None)
+    if subs is not None:
+        if not all(hasattr(s, "array") and hasattr(s, "rows")
+                   for s in subs):
+            return 0
+        return sum(int(s.array.nbytes) for s in subs)
     if hasattr(store, "array") and hasattr(store, "rows"):
         return int(getattr(store.array, "nbytes", 0))
     return 0

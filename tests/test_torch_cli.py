@@ -1,10 +1,11 @@
 """The port's command line on the CPU (``--device cpu`` throughout): the
 counterparts of ``tests/test_cli_eval.py`` other than
-``test_train_multi_video`` (``--multi`` waits for ROADMAP §A.6), ``encode``
+``test_train_multi_video`` (in ``tests/test_torch_multi.py``), ``encode``
 and ``embed`` against ``svtpu.cli`` on shared weights, and the guards: no
 card and no ``--device`` exits, eval commands without matplotlib, the
-commands that wait for later slices, and an import that pulls in neither
-matplotlib nor sklearn nor PIL."""
+command that waits for a later slice (``sweep``), and an import that pulls
+in neither matplotlib nor sklearn nor PIL. The video commands are in
+``tests/test_torch_video.py``."""
 import functools
 import json
 import subprocess
@@ -217,7 +218,7 @@ def test_train_presets_equal_svtpus():
 
 
 def test_train_multi_video_bad_spec(tmp_path):
-    with pytest.raises(SystemExit, match="§A.6"):
+    with pytest.raises(SystemExit, match="NAME=FRAMES_DIR"):
         cli.main(["train", "--multi", "novideodir",
                   "--resolution", "32", "--epochs", "1", *CPU])
 
@@ -411,13 +412,7 @@ def test_no_card_and_no_device_exits(cmd, video_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["extract", "v.mp4", "out"], "A.4"),
-    (["convert", "a.avi", "b.avi"], "A.4"),
-    (["encode", "v.mp4", "--ckpt", "c", *CPU], "A.4"),
     (["sweep", "--video", "chinese_chess"], "A.6"),
-    (["train", "--multi", "a=dir", *CPU], "A.6"),
-    (["eval-consistency", "--multi", "a=dir", *CPU], "A.6"),
-    (["eval-hamming", "--multi", "a=dir", *CPU], "A.6"),
 ], ids=lambda v: v[0] if isinstance(v, list) else v)
 def test_unported_commands_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=f"waits for ROADMAP §{item}"):

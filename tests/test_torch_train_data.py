@@ -12,6 +12,7 @@ from svtpu.evaluation import hamming as jh
 from svtpu.training.trainer import modal_consistency as jax_modal_consistency
 from svtpu_torch.config import BUILTIN_VIDEOS, VideoMeta
 from svtpu_torch.data import datasets as td
+from svtpu_torch.data import native
 from svtpu_torch.data.pairs import build_pairs, epoch_batches
 from svtpu_torch.data.segments import split_segments
 from svtpu_torch.evaluation import hamming as th
@@ -105,7 +106,7 @@ def test_embedding_store_matches_jax():
                                       ref.gather([[3, 9]]))
 
 
-def test_frame_store_matches_jax(synth_video):
+def test_frame_store_matches_jax(synth_video, tmp_path, monkeypatch):
     frames_dir, meta = synth_video
     idx = [5, 0, 17, 33, 59, 33]
     ours = td.FrameStore(frames_dir, idx, resolution=(24, 16))
@@ -114,8 +115,14 @@ def test_frame_store_matches_jax(synth_video):
     np.testing.assert_array_equal(ours.indices, ref.indices)
     assert ours.item_shape == (24, 16, 3) and ours.dtype == np.uint8
     np.testing.assert_array_equal(ours.rows([[59, 0]]), [[4, 0]])
-    with pytest.raises(NotImplementedError):
-        td.FrameStore(frames_dir, idx, decoder="native")
+    # decoder="native" builds the library (into a temporary directory) and
+    # decodes the same frames, within a few levels of PIL's resize.
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    nat = td.FrameStore(frames_dir, idx, resolution=(24, 16),
+                        decoder="native")
+    assert nat.decoder == "native" and nat.array.shape == ref.array.shape
+    np.testing.assert_array_equal(nat.indices, ref.indices)
+    assert np.abs(nat.array.astype(int) - ref.array.astype(int)).mean() < 5
     store, splits = td.make_split_stores(frames_dir, meta, (32, 32),
                                          0.15, 0.15)
     _assert_same_split(splits, jax_split(meta.state_segments(), 0.15, 0.15))
