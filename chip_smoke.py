@@ -66,7 +66,16 @@ on and their launches counted:
     and its code match, conv0 by space-to-depth and the decoder by
     depth-to-space against the direct convs, timed; and ``train --multi``
     with the ``multi-video`` preset, ``eval-hamming --multi`` and
-    ``eval-consistency --multi`` on two seeded JPEG videos.
+    ``eval-consistency --multi`` on two seeded JPEG videos;
+  * the rest of the port (``phase_rest_path``): ``environment_report``,
+    ``summarize`` of the flagship, ``ema_update`` against a float64
+    replay, the CLI's ``sweep`` (two trials), ``eval-tradeoff
+    --sweep-dir`` and the sweep's resume, data and tensor parallelism on a
+    single-rank NCCL group (the flagship ``Trainer`` on (1,) and (1, 1)
+    meshes, a data-parallel ``PerceptualEncoder`` at the SD first stage's
+    widths) against the runs without a mesh, and a ``torch.profiler``
+    trace of 5 flagship train steps: the device's busy share and its top
+    ops.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -1740,13 +1749,13 @@ def percep_latents(ids, states) -> dict:
             for i, s in zip(ids, states)}
 
 
-def write_jpegs(d: Path, frames: np.ndarray) -> None:
-    """``frames[i]`` as ``d / "%010d.jpg" % i`` (PIL, its default
-    quality)."""
+def write_jpegs(d: Path, frames: np.ndarray, ids=None) -> None:
+    """``frames[k]`` as ``d / "%010d.jpg" % ids[k]`` (``ids``: 0, 1, ...
+    by default; PIL, its default quality)."""
     from PIL import Image
 
     d.mkdir(parents=True, exist_ok=True)
-    for i, f in enumerate(frames):
+    for i, f in zip(range(len(frames)) if ids is None else ids, frames):
         Image.fromarray(f).save(d / f"{i:010d}.jpg")
 
 
@@ -2524,6 +2533,395 @@ def trunk_variants(card: str, sd) -> dict:
     return {"match": match, "ms": {k: v[0] for k, v in times.items()}}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kernel_label(name: str) -> str:
+    """A device event's name without its template and argument lists."""
+    name = name.removeprefix("void ")
+    for stop in ("<", "("):
+        name = name.split(stop)[0]
+    return name[:72]
+
+
+def trace_breakdown(logdir: Path, steps: int) -> dict:
+    """The device's busy share of a ``trace`` window and its top ops, from
+    the Chrome trace ``trace`` wrote: device events are those of the
+    "kernel", "gpu_memcpy" and "gpu_memset" categories, each named by the
+    operator that launched it (its "External id") and its kernel; the
+    window spans every event of the trace; busy time is the union of the
+    device intervals."""
+    path = max(logdir.glob("*.json"), key=lambda p: p.stat().st_mtime)
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    ops = {e["args"]["External id"]: e.get("name", "?") for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    dev = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+         f"{ops.get(e.get('args', {}).get('External id'), '?')} -> "
+         f"{kernel_label(e.get('name', '?'))}") for e in events
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    require(len(dev) > 0, "trace: no device events (CUPTI recorded none)")
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for s, t, _ in dev:
+        if cur_hi is None or s > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = s, t
+        else:
+            cur_hi = max(cur_hi, t)
+    busy += cur_hi - cur_lo
+    by_name = {}
+    for s, t, name in dev:
+        n, tot = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, tot + t - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (hi - lo), "device_events": len(dev),
+            "kernel_ms_sum": sum(t - s for s, t, _ in dev) / 1e3,
+            "steps": steps,
+            "top": [(name, n, tot / 1e3) for name, (n, tot) in top]}
+
+
+def phase_rest_path(card: str) -> dict:
+    """The last module slice on the card, in one process:
+
+      * ``environment_report()`` (the smoke test must pass and name the
+        card);
+      * ``summarize`` of the flagship (256x256, bf16) on the card, its table
+        equal to the CPU's;
+      * ``ema_update`` over the flagship's parameters: 100 updates under
+        ``torch.cuda.set_sync_debug_mode("error")`` against a float64 CPU
+        replay, and one update's time;
+      * ``sweep --variant contrastive_p --count 2 --epochs 2 --no-wandb``
+        as a user runs it (``cli.main``, no ``--device``) on
+        ``train_video()``'s 396 frames as 256x256 JPEGs, then
+        ``eval-tradeoff --sweep-dir`` (two points), then the same sweep
+        again, which resumes both trials without a train step; every
+        kernel's launches 0 (the sweep keeps ``svtpu``'s defaults);
+      * data and tensor parallelism over a single-rank NCCL group: the
+        flagship ``Trainer`` on a (1,) data mesh (2 fused epochs,
+        deterministic algorithms) bit-identical to the one without a mesh,
+        a (1, 1) data x model mesh within 1e-5 of it in float32, and
+        ``PerceptualEncoder(mesh=...)`` at the SD first stage's published
+        widths bit-identical to the encoder without one on 8 frames; the
+        group is torn down before the phase returns;
+      * a ``trace`` of 5 fused flagship train steps (batch 32): the device's
+        busy share of the traced window and its 10 costliest ops.
+
+    Its kernel launches (the parallel runs' probes and encode) go to the
+    kernels line."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from svtpu_torch import cli
+    from svtpu_torch.config import PerceptualConfig, TrainConfig
+    from svtpu_torch.config import rbvae_variant
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.models.visualize import summarize
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.parallel import distributed
+    from svtpu_torch.parallel.mesh import make_mesh
+    from svtpu_torch.parallel.sharding import full_state_dict
+    from svtpu_torch.perceptual.embed import PerceptualEncoder
+    from svtpu_torch.training import ema
+    from svtpu_torch.training import trainer as trainer_mod
+    from svtpu_torch.training.trainer import Trainer
+    from svtpu_torch.utils import profiling
+    from svtpu_torch.utils.env_check import environment_report
+
+    t_phase = time.perf_counter()
+    counters = {"fused_conv01": fused_conv01,
+                "lstm_binary_concrete": lstm_binary_concrete,
+                "binary_concrete": binary_concrete_fused,
+                "flash_attention": flash_attention}
+    total = dict.fromkeys(counters, 0)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launches():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # 1. The environment report.
+    rep = environment_report()
+    print("environment_report: " + json.dumps(rep))
+    name = torch.cuda.get_device_name(0)
+    require(rep["device_smoke_test"] is True and name in rep["devices"],
+            f"environment report: smoke test {rep['device_smoke_test']}, "
+            f"devices {rep['devices']}")
+
+    # 2. The flagship's summary, on the card and on the CPU.
+    fcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    table = summarize(fcfg)
+    card_s = time.perf_counter() - t0
+    require(table == summarize(fcfg, device="cpu"),
+            "summarize: the card's table differs from the CPU's")
+    totals = [ln for ln in table.splitlines()
+              if ln.startswith(("parameters held", "trainable"))]
+    print(f"summarize flagship (latent {LATENT}, 256x256, bf16): "
+          f"{len(table.splitlines())} lines, equal on the card and the CPU; "
+          f"{'; '.join(totals)}; {card_s:.2f} s on the card [{card}]")
+
+    # 3. EMA over the flagship's parameters, against a float64 CPU replay.
+    model = Seq2SeqBinaryVAE(fcfg, device="cuda")
+    params = dict(model.named_parameters())
+    state = ema.ema_init(params)
+    replay = {k: v.detach().cpu().double() for k, v in params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for n in range(1, 101):
+        with torch.no_grad():
+            for p in params.values():
+                p.add_(torch.randn(p.shape, generator=gen, device="cuda"),
+                       alpha=0.01)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = ema.ema_update(state, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        d = min(0.9999, (1.0 + n) / (10.0 + n))
+        for k, p in params.items():
+            replay[k] -= (1.0 - d) * (replay[k] - p.detach().cpu().double())
+    rel = max(float((state.ema[k].double().cpu() - r).abs().max()
+                    / r.abs().max()) for k, r in replay.items())
+    ms, sp = cuda_ms(lambda: ema.ema_update(state, params), iters=20)
+    nbytes = 3 * sum(p.numel() * p.element_size() for p in params.values())
+    print(f"check ema_update: {state.updates} updates over the flagship's "
+          f"{sum(p.numel() for p in params.values()):,} parameters under "
+          f"set_sync_debug_mode('error'), against a float64 CPU replay: max "
+          f"error / its tensor's max {rel:.2e} (limit 1e-6); one update "
+          f"{ms:.4f} ms (CUDA events, spread {sp:.3f}), bound "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes) [{card}]")
+    require(rel <= 1e-6, "ema_update disagrees with its float64 replay")
+    del model, params, state
+
+    meta, splits, ids, states = train_video()
+    frames = video_frames(meta, states)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        # 4. The sweep as a user runs it, the trade-off, the resume.
+        write_jpegs(d / "frames", frames, ids)
+        video = ["--video", "chinese_chess", "--frames-dir",
+                 str(d / "frames")]
+        sweep = ["sweep", *video, "--variant", "contrastive_p", "--count",
+                 "2", "--epochs", "2", "--no-wandb", "--seed", "0",
+                 "--save-dir", str(d / "sweep")]
+        steps = [0]
+        step = Trainer._train_step
+
+        def counted_step(self, *a, **k):
+            steps[0] += 1
+            return step(self, *a, **k)
+
+        runs = {}
+        trainer_mod.Trainer._train_step = counted_step
+        try:
+            for what, argv in (
+                    ("sweep", sweep),
+                    ("eval-tradeoff", ["eval-tradeoff", *video,
+                                       "--sweep-dir", str(d / "sweep"),
+                                       "--out-dir", str(d / "trade")]),
+                    ("resume", sweep)):
+                zero()
+                steps[0] = 0
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    cli.main(argv)
+                torch.cuda.synchronize()
+                runs[what] = (buf.getvalue(), time.perf_counter() - t0,
+                              launches(), steps[0])
+        finally:
+            trainer_mod.Trainer._train_step = step
+        out, wall, got, n_steps = runs["sweep"]
+        res = json.loads((d / "sweep" / "sweep_results.json").read_text())
+        secs = [float(m) for m in re.findall(r" in ([0-9.]+)s$", out, re.M)]
+        for t, (trial, s) in enumerate(zip(res["trials"], secs)):
+            c = trial["config"]
+            print(f"sweep trial {t}: latent {c['latent_dim']}, batch "
+                  f"{c['batch_size']}, lr {c['learning_rate']:.3g}, margin "
+                  f"{c['margin']:.3f}, alpha {c['alpha']:.3f}, beta_kl "
+                  f"{c['beta_kl']:.4f}, noise {c['noise_ratio']:.3f}: "
+                  f"best_combined_score {trial['best_combined_score']:.4f} "
+                  f"in {s:.1f} s (2 epochs, bf16) [{card}]")
+        print(f"cli sweep --count 2 --epochs 2: {wall:.2f} s, {n_steps} "
+              f"train steps, launches {got}; best "
+              f"{res['metric']} {res['best']:.4f} [{card}]")
+        require(len(res["trials"]) == 2 and len(secs) == 2,
+                "sweep: two trials expected")
+        require(all(np.isfinite(t["best_combined_score"])
+                    for t in res["trials"]), "sweep: non-finite score")
+        for what, (out, wall, got, n_steps) in runs.items():
+            require(all(v == 0 for v in got.values()),
+                    f"cli {what}: kernel launches {got}, expected none")
+        _, t_wall, _, _ = runs["eval-tradeoff"]
+        rows = (d / "trade" / "tradeoff.csv").read_text().strip() \
+            .splitlines()
+        print(f"cli eval-tradeoff --sweep-dir: {len(rows) - 1} points in "
+              f"{t_wall:.2f} s: {rows[1:]} [{card}]")
+        require(len(rows) == 3, "eval-tradeoff: two points expected")
+        r_out, r_wall, _, r_steps = runs["resume"]
+        print(f"cli sweep again over the same directory: "
+              f"{r_out.count('resumed')} trials resumed, {r_steps} train "
+              f"steps, {r_wall:.2f} s")
+        require(r_out.count("resumed") == 2 and r_steps == 0,
+                "sweep resume: both trials must resume without training")
+        total = {k: total[k] + sum(r[2][k] for r in runs.values())
+                 for k in total}
+
+    # 5. Data and tensor parallelism over a single-rank NCCL group. The
+    # runs without a mesh come first, before any process group exists.
+    mcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16",
+                         pallas_trunk=True, pallas_sampler=True)
+    tcfg = TrainConfig(**FLAGSHIP_TRAIN)
+    store = MemoryStore(frames, ids)
+
+    def train(cfg, mesh=None):
+        tr = Trainer(cfg, tcfg, store, splits, meta.flags, mesh=mesh,
+                     device="cuda")
+        return tr, tr.train(num_epochs=2)
+
+    def params_of(hist):
+        """Whole float32 parameters (``DTensor``s gathered: call it while
+        the group is up)."""
+        return {k: v.float() for k, v in
+                full_state_dict(hist["final_state"].model).items()}
+
+    f32 = dataclasses.replace(mcfg, compute_dtype="float32")
+    g = np.random.default_rng(13)
+    sd_frames = g.integers(0, 256, (PERCEP_BATCH, 704, 1280, 3), np.uint8)
+    weights = percep_weights(sd_frames[:2])
+    pcfg = PerceptualConfig(compute_dtype="bfloat16")
+
+    def encoder(mesh=None):
+        return PerceptualEncoder(weights["ae"], pcfg, batch_size=PERCEP_BATCH,
+                                 seed=3, mesh=mesh)
+
+    saved_env = {k: os.environ.pop(k) for k in
+                 ("WORLD_SIZE", "MASTER_ADDR", "TORCHELASTIC_RUN_ID")
+                 if k in os.environ}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, ref_bf16 = train(mcfg)
+            _, ref_f32 = train(f32)
+        z_ref = encoder().encode_frames(sd_frames)
+        require(distributed.initialize() is False
+                and not dist.is_initialized(),
+                "initialize() without a launcher must be a no-op")
+        port = free_port()
+        require(distributed.initialize(
+            init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0),
+            "initialize() with an address must start the group")
+        backend = dist.get_backend()
+        require(backend == "nccl", f"backend {backend}, expected nccl")
+        try:
+            zero()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t0 = time.perf_counter()
+                dp_tr, dp = train(mcfg, make_mesh((1,), ("data",)))
+                dp_wall = time.perf_counter() - t0
+                tp_tr, tp = train(f32, make_mesh((1, 1), ("data", "model")))
+            dp_params, tp_params = params_of(dp), params_of(tp)
+            mesh = make_mesh((1,), ("data",))
+            enc = encoder(mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = enc.encode_frames(sd_frames)
+            enc_s = time.perf_counter() - t0
+            got = launches()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        os.environ.update(saved_env)
+    require(not dist.is_initialized(), "the process group is still up")
+    fcs = [getattr(m.fc.weight, "placements", None)
+           for m in (tp["final_state"].model.encoder_cnn,
+                     tp["final_state"].model.decoder_cnn)]
+    require(dp_tr._data_group is not None and tp_tr._data_group is not None
+            and fcs == [(Shard(1),), (Shard(0),)],
+            f"the mesh trainers did not take the parallel path ({fcs})")
+    a, b = dp_params, params_of(ref_bf16)
+    dp_err = max(float((a[k] - b[k]).abs().max()) for k in b)
+    a, b = tp_params, params_of(ref_f32)
+    tp_errs = {k: float((a[k] - b[k]).abs().max() / b[k].abs().max()
+                        .clamp_min(1e-30)) for k in b}
+    tp_worst = max(tp_errs, key=tp_errs.get)
+    tp_rel = tp_errs[tp_worst]
+    z_err = float(np.abs(z - z_ref).max())
+    print(f"check data parallel on one card (NCCL, world 1): the flagship "
+          f"Trainer on a (1,) data mesh, 2 fused epochs (bf16, batch 32, "
+          f"deterministic algorithms, {dp_wall:.2f} s), against the one "
+          f"without a mesh: max |param diff| {dp_err:.3e} (must be 0); a "
+          f"(1, 1) data x model mesh in float32 (encoder_cnn.fc "
+          f"RowwiseParallel {fcs[0]}, decoder_cnn.fc ColwiseParallel "
+          f"{fcs[1]}): max error / its "
+          f"tensor's max {tp_rel:.2e} ({tp_worst}; limit 1e-5); "
+          f"PerceptualEncoder on a "
+          f"(1,) mesh, {PERCEP_BATCH} frames 704x1280 at the SD first "
+          f"stage's widths (stochastic, bf16): max |latent diff| "
+          f"{z_err:.3e} (must be 0), {enc_s:.2f} s; launches on the mesh "
+          f"runs {got} [{card}]")
+    require(dp_err == 0.0, "(1,) data mesh: parameters differ")
+    require(tp_rel <= 1e-5, "(1, 1) mesh: parameters disagree")
+    require(z_err == 0.0, "data-parallel PerceptualEncoder: latents differ")
+    require(got["flash_attention"] == 1,
+            f"data-parallel encode: {got['flash_attention']} flash_attention "
+            f"launches, expected 1 (one batch)")
+    require(got["fused_conv01"] > 0 and got["lstm_binary_concrete"] > 0,
+            "the mesh trainers' probes did not run the kernels")
+    total = {k: total[k] + got[k] for k in total}
+    print("distributed: more than one rank cannot be shown on one card "
+          "(NCCL takes one rank a GPU); the 2- and 4-rank semantics are "
+          "held by the CPU tests (tests/test_torch_parallel.py, gloo)")
+
+    # 6. A trace of 5 fused flagship train steps.
+    tr = Trainer(mcfg, tcfg, store, splits, meta.flags, device="cuda")
+    st = tr.init_state()
+    idx = tr._upload_epoch(0)
+    for i in range(3):
+        tr._train_step(st, idx[i % len(idx)])
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for i in range(5):
+                tr._train_step(st, idx[i % len(idx)])
+            torch.cuda.synchronize()
+        br = trace_breakdown(Path(tmp), 5)
+    print(f"trace: 5 fused flagship train steps (batch {tcfg.batch_size}, "
+          f"bf16): window {br['window_ms']:.3f} ms "
+          f"({br['window_ms'] / 5:.3f} ms a step), device busy "
+          f"{br['busy_ms']:.3f} ms = {br['busy_share']:.1%} of the window "
+          f"({br['device_events']} device events, {br['kernel_ms_sum']:.3f} "
+          f"ms summed) [{card}]")
+    for name_, n, ms_ in br["top"]:
+        print(f"  trace top op: {ms_:.3f} ms ({ms_ / br['busy_ms']:.1%} of "
+              f"busy) in {n} calls: {name_}")
+    print(f"rest path: all checks passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {total} [{card}]")
+    return {"launches": total, "trace": br}
+
+
 def attention_library(q, k, v):
     """One PyTorch call computing the same attention, and its backend:
     ``F.scaled_dot_product_attention`` on ``[B, 1, N, D]`` with the first
@@ -2576,11 +2974,11 @@ def instance(symbol: str) -> str:
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
                        percep: dict, simple: dict, wide: dict,
                        train: dict, evaluation: dict, cli: dict,
-                       video: dict) -> list:
+                       video: dict, rest: dict) -> list:
     """Each kernel's row of the kernels line: its time, its plain
     version's, a library call's where one computes the same function, its
     bound, and its launches on every path of this run (the evaluation,
-    command-line and video phases' included)."""
+    command-line, video and rest phases' included)."""
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
@@ -2614,7 +3012,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
         launches=sum(d["launches"]["fused_conv01"]
-                     for d in (main, wide, train, cli, video))
+                     for d in (main, wide, train, cli, video, rest))
         + eval_launches("fused_conv01"),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
@@ -2631,7 +3029,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"{train['launches']['fused_conv01']}, evaluation "
           f"{eval_launches('fused_conv01')}, cli "
           f"{cli['launches']['fused_conv01']}, video "
-          f"{video['launches']['fused_conv01']}) [{card}]")
+          f"{video['launches']['fused_conv01']}, rest "
+          f"{rest['launches']['fused_conv01']}) [{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
@@ -2650,7 +3049,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
              "bytes": 2 * 2 * n / PEAK_BYTES * 1e3}
     launches = {k: d["launches"]["binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("simple", simple),
-                 ("wide", wide), ("cli", cli), ("video", video))}
+                 ("wide", wide), ("cli", cli), ("video", video),
+                 ("rest", rest))}
     launches["evaluation"] = eval_launches("binary_concrete")
     rows.append(dict(
         name="binary_concrete", route="cuda",
@@ -2698,7 +3098,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
              if "lstm_binary_concrete_kernel" in fn}
     launches = {k: d["launches"]["lstm_binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("train", train),
-                 ("cli", cli), ("video", video))}
+                 ("cli", cli), ("video", video), ("rest", rest))}
     launches["percep train"] = \
         train["percep_launches"]["lstm_binary_concrete"]
     launches["evaluation"] = eval_launches("lstm_binary_concrete")
@@ -2749,7 +3149,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         launches=percep["launches"]["flash_attention"]
         + eval_launches("flash_attention")
         + cli["launches"]["flash_attention"]
-        + video["launches"]["flash_attention"],
+        + video["launches"]["flash_attention"]
+        + rest["launches"]["flash_attention"],
         max_abs_err=errs["flash_attention"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
         bound_by=max(bound, key=bound.get), library_ms=lib_ms))
@@ -2764,7 +3165,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"{percep['launches']['flash_attention']}, evaluation "
           f"{eval_launches('flash_attention')}, cli "
           f"{cli['launches']['flash_attention']}, video "
-          f"{video['launches']['flash_attention']} [{card}]")
+          f"{video['launches']['flash_attention']}, rest "
+          f"{rest['launches']['flash_attention']} [{card}]")
     return rows
 
 
@@ -2792,8 +3194,9 @@ def main() -> None:
     evaluation = phase_eval_path(card)
     cli = phase_cli_path(card)
     video = phase_video_path(card)
+    rest = phase_rest_path(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
-                              wide, train, evaluation, cli, video)
+                              wide, train, evaluation, cli, video, rest)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "

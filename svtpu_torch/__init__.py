@@ -8,6 +8,21 @@ built with ``nvcc`` at first use and bound through ``ctypes``
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no card and no explicit device they raise.
+
+Layer map (``svtpu``'s, ported):
+  L0  svtpu_torch.data          — video → frames (cv2, native C++), stores,
+                                  pair batches
+  L1  svtpu_torch.perceptual    — SD-VAE embedding, data-parallel on a mesh
+  L2  svtpu_torch.models        — AutoencoderKL, the four RBVAE variants,
+                                  the model summary (``visualize``)
+  L3  svtpu_torch.ops, csrc     — plain ops and the Hopper kernels
+  L4  svtpu_torch.training      — the trainer (data and tensor parallel on
+                                  a mesh), checkpoints, EMA and LR schedule
+  L5  svtpu_torch.sweeps        — hyperparameter sweeps (W&B or local)
+  L6  svtpu_torch.evaluation    — consistency/hamming/projection/probe evals
+      svtpu_torch.parallel      — meshes, partition rules, process groups
+      svtpu_torch.utils         — profiling and the environment report
+      svtpu_torch.cli           — the command line
 """
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ commands, flags, defaults and train presets.
   encode           video file or frame dir + trained ckpt → packed symbols npz
   train            train an RBVAE variant (``--preset`` for a measured recipe;
                    ``--multi`` for several videos on one state axis)
+  sweep            hyperparameter sweep (W&B, or a seeded local random
+                   search that resumes)
   embed            frames → perceptual embeddings .npy (SD first stage)
   interpolate      SD latent interpolation demo
   eval-consistency / eval-hamming / eval-projections / eval-probe /
@@ -24,8 +26,7 @@ written (``eval-projections`` then writes each projection's points as a
 CSV). ``eval-projections`` and ``eval-probe`` need sklearn for the fit
 itself. matplotlib, sklearn and PIL are imported only where they are used.
 
-Not ported yet: ``sweep``, which exits naming the ROADMAP item it waits for
-(§A.6). ``download-weights`` needs the network and is not ported.
+``download-weights`` needs the network and is not ported.
 
 Run: ``python -m svtpu_torch.cli <command> --help``.
 """
@@ -39,14 +40,6 @@ from pathlib import Path
 import numpy as np
 
 from svtpu_torch import resolve_device
-
-# What each unported command waits for (ROADMAP.md §A).
-WAITS_FOR = {"A.6": "sweeps"}
-
-
-def _waits(what: str, item: str):
-    raise SystemExit(f"{what} is not ported to svtpu_torch yet: it waits "
-                     f"for ROADMAP §{item} ({WAITS_FOR[item]})")
 
 
 def _meta_by_name(args, name):
@@ -354,7 +347,20 @@ def cmd_train(args):
 
 
 def cmd_sweep(args):
-    _waits("sweep", "A.6")
+    from svtpu_torch.data.datasets import EmbeddingStore
+    from svtpu_torch.sweeps.runner import run_sweep
+
+    meta = _video_meta(args)
+    if args.variant.startswith("percep"):
+        store = EmbeddingStore(args.embeddings)
+    else:
+        store, _ = _pixel_store(args, meta)
+    res = run_sweep(args.variant, store, meta, count=args.count,
+                    seed=args.seed, save_dir=args.save_dir,
+                    use_wandb=not args.no_wandb,
+                    epochs_override=args.epochs, device=args.device)
+    if "best" in res:
+        print(f"best {res['metric']}: {res['best']}")
 
 
 def _model_overrides(args):
@@ -909,8 +915,7 @@ def main(argv=None):
     _add_device_arg(sp)
     sp.set_defaults(fn=cmd_train)
 
-    sp = sub.add_parser("sweep", help="hyperparameter sweep (waits for "
-                                      "ROADMAP §A.6)")
+    sp = sub.add_parser("sweep", help="hyperparameter sweep")
     _add_video_args(sp)
     sp.add_argument("--variant", default="contrastive",
                     choices=["contrastive", "percep", "triplet",
@@ -926,6 +931,7 @@ def main(argv=None):
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--save-dir")
     sp.add_argument("--no-wandb", action="store_true")
+    _add_device_arg(sp)
     sp.set_defaults(fn=cmd_sweep)
 
     for name, fn in [("eval-consistency", cmd_eval_consistency),

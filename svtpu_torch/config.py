@@ -239,8 +239,9 @@ class TrainConfig:
     # Reduction of the adjacent-pair Hamming vector: "mean" or "min".
     sep_aggregate: str = "mean"
     log_dir: Optional[str] = None
-    # Device layout; the port trains on one device and raises on a "model"
-    # axis or a mesh of more than one device.
+    # Device layout (``parallel.mesh.make_mesh``): "data" splits each batch
+    # over its ranks, "model" shards the big projections; without a process
+    # group the mesh is one rank.
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axes: Tuple[str, ...] = ("data",)
     # Keep the whole store on the device and feed steps row indices:

@@ -30,6 +30,7 @@ from torch import nn
 from svtpu_torch import resolve_device
 from svtpu_torch.config import PerceptualConfig
 from svtpu_torch.ops.attention import attention
+from svtpu_torch.ops import draws
 from svtpu_torch.ops.conv import Conv2dTorch
 
 
@@ -217,9 +218,11 @@ class DiagonalGaussian(NamedTuple):
     def std(self) -> torch.Tensor:
         return torch.exp(0.5 * self.logvar)
 
-    def sample(self, generator: torch.Generator) -> torch.Tensor:
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            device=self.mean.device, dtype=self.mean.dtype)
+    def sample(self, generator: draws.Source) -> torch.Tensor:
+        """``mean + std * noise``; ``generator`` may be a
+        ``draws.ShardedGenerator`` (one rank's rows of a global batch)."""
+        noise = draws.randn(self.mean.shape, generator, self.mean.dtype,
+                            self.mean.device)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig
+from svtpu_torch.ops import draws
 from svtpu_torch.ops.binarize import binary_concrete
 from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
 from svtpu_torch.ops.conv import (Conv2dTorch, ConvTranspose2dTorch, Dense,
@@ -68,24 +69,26 @@ class RBVAEOutput(NamedTuple):
 
 
 def _dropout(h: torch.Tensor, rate: float,
-             gen: torch.Generator) -> torch.Tensor:
+             gen: draws.Source) -> torch.Tensor:
     """Keep each value with probability ``1 - rate`` and scale the kept
     ones by ``1 / (1 - rate)``, as flax's Dropout does; the mask comes from
     ``gen`` (``F.dropout`` takes no generator)."""
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=gen, device=h.device) < keep
+    mask = draws.rand(h.shape, gen, device=h.device) < keep
     return torch.where(mask, h / keep, 0.0)
 
 
 def _dropout_generator(cfg: RBVAEConfig, dropout_seed: Optional[int],
-                       stage: int, device):
+                       stage: int, device,
+                       rows: Optional[draws.GlobalRows] = None):
     """The generator of one conv stack's masks (stage 0 the encoder, 1 the
-    decoder), or ``None`` for no dropout."""
+    decoder), drawing at ``rows`` of the global batch where given, or
+    ``None`` for no dropout."""
     if dropout_seed is None or cfg.conv_dropout == 0:
         return None
     gen = torch.Generator(device=device)
     gen.manual_seed(batch_seed(dropout_seed, stage))
-    return gen
+    return draws.sharded(gen, rows)
 
 
 def _stack(cfg: RBVAEConfig, convs, final_relu: bool) -> nn.Sequential:
@@ -117,14 +120,16 @@ class ConvEncoder(nn.Module):
         return [m for m in self.conv if isinstance(m, Conv2dTorch)]
 
     def forward(self, x: torch.Tensor, trunk: str = "torch",
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                rows: Optional[draws.GlobalRows] = None) -> torch.Tensor:
         """``x [N, H, W, C]`` → logits ``[N, L]``: ``features``, then fc."""
-        h = self.features(x, trunk, dropout_seed)
+        h = self.features(x, trunk, dropout_seed, rows)
         # Flatten in torch's channel-major order, which the fc weight uses.
         return self.fc(h.reshape(h.shape[0], -1), self.cfg.torch_dtype)
 
     def features(self, x: torch.Tensor, trunk: str = "torch",
-                 dropout_seed: Optional[int] = None) -> torch.Tensor:
+                 dropout_seed: Optional[int] = None,
+                 rows: Optional[draws.GlobalRows] = None) -> torch.Tensor:
         """``x [N, H, W, C]`` → the conv stack's output ``[N, C', H', W']``
         in the compute dtype.
 
@@ -134,13 +139,14 @@ class ConvEncoder(nn.Module):
         inference) or "int8" (conv0 in the compute dtype, the others by
         ``conv2d_int8``; inference). ``dropout_seed``: dropout between the
         convs, masks drawn from a generator seeded by it; ``None`` for none.
+        ``rows``: the masks' rows of a global batch (``ops/draws.py``).
         """
         c = self.cfg
         dt = c.torch_dtype
         convs = self.convs()
         n = len(convs)
         h = x.to(dt)
-        gen = _dropout_generator(c, dropout_seed, 0, x.device)
+        gen = _dropout_generator(c, dropout_seed, 0, x.device, rows)
         if trunk == "kernel":
             if gen is not None:
                 raise ValueError("the trunk kernel is inference-only: no "
@@ -197,13 +203,14 @@ class ConvDecoder(nn.Module):
                   for i in range(len(feats))], False)
 
     def forward(self, z: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
-        """``z [N, L]`` → ``[N, H, W, C]``; ``dropout_seed`` as the
-        encoder's."""
+                dropout_seed: Optional[int] = None,
+                rows: Optional[draws.GlobalRows] = None) -> torch.Tensor:
+        """``z [N, L]`` → ``[N, H, W, C]``; ``dropout_seed`` and ``rows`` as
+        the encoder's."""
         c = self.cfg
         dt = c.torch_dtype
         eh, ew = c.encoded_hw
-        gen = _dropout_generator(c, dropout_seed, 1, z.device)
+        gen = _dropout_generator(c, dropout_seed, 1, z.device, rows)
         h = self.fc(z, dt).reshape(z.shape[0], -1, eh, ew)
         deconvs = [m for m in self.deconv
                    if isinstance(m, ConvTranspose2dTorch)]
@@ -278,7 +285,8 @@ class Seq2SeqBinaryVAE(nn.Module):
     def _encode_to_latent(self, x, temperature, hard, noise_scale,
                           generator, u, sampler: str = "torch",
                           trunk: str = "torch",
-                          dropout_seed: Optional[int] = None):
+                          dropout_seed: Optional[int] = None,
+                          rows: Optional[draws.GlobalRows] = None):
         """Conv trunk + encoder LSTM + binarization.
 
         ``sampler``: "torch" (the plain op) or "kernel" (the sampler
@@ -290,10 +298,17 @@ class Seq2SeqBinaryVAE(nn.Module):
         ``trunk``: "torch", "kernel" (the fused conv0+conv1 kernel) or
         "int8" (``ConvEncoder.forward``).
         ``dropout_seed``: dropout in the conv trunk (training), or ``None``.
+        ``rows``: a data-parallel rank's rows of the global batch, at which
+        the noise and the dropout masks are drawn (``ops/draws.py``); the
+        plain sampler only.
         """
         c = self.cfg
         if sampler not in ("torch", "kernel"):
             raise ValueError(f"unknown sampler {sampler!r}")
+        if sampler == "kernel" and rows is not None:
+            raise ValueError("the sampler kernel draws its own noise; "
+                             "global rows need sampler='torch'")
+        generator = draws.sharded(generator, rows)
         if sampler == "kernel" and u is not None:
             raise ValueError("the sampler kernel draws its own noise; "
                              "an injected u needs sampler='torch'")
@@ -321,8 +336,8 @@ class Seq2SeqBinaryVAE(nn.Module):
 
         B, T = x.shape[:2]
         flat = x.reshape((B * T,) + tuple(x.shape[2:]))
-        logits = self._cnn(self.encoder_cnn, flat, trunk, dropout_seed) \
-            .reshape(B, T, c.latent_dim)
+        logits = self._cnn(self.encoder_cnn, flat, trunk, dropout_seed,
+                           rows).reshape(B, T, c.latent_dim)
         if c.binarize == "pre_rnn":
             # simple variant: binarize conv logits, then run the LSTMs.
             z_seq = binarize(logits)
@@ -350,14 +365,17 @@ class Seq2SeqBinaryVAE(nn.Module):
                 noise_ratio: float = 0.1, *, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
                 u: Optional[torch.Tensor] = None,
-                dropout_seed: Optional[int] = None) -> RBVAEOutput:
+                dropout_seed: Optional[int] = None,
+                rows: Optional[draws.GlobalRows] = None) -> RBVAEOutput:
         """Full autoencoding pass, on the plain trunk and sampler.
 
         ``deterministic=False`` means dropout and noise, as in the
         reference: dropout masks come from ``dropout_seed`` (a host int,
         needed when the variant has dropout). Noise is drawn from
         ``generator`` or taken from ``u`` (uniform [0, 1), shaped like the
-        binarized tensor) whenever either is given.
+        binarized tensor) whenever either is given. ``rows``: ``x`` is a
+        data-parallel rank's rows of a global batch, and both draws are
+        taken at them (``ops/draws.py``).
         """
         c = self.cfg
         self._require_noise_source(deterministic, generator, u)
@@ -366,11 +384,12 @@ class Seq2SeqBinaryVAE(nn.Module):
         noise_scale = noise_ratio if c.has_noise_ratio else 1.0
         logits, h_seq, z_seq = self._encode_to_latent(
             x, temperature, hard, noise_scale, generator, u,
-            dropout_seed=dropout_seed)
+            dropout_seed=dropout_seed, rows=rows)
         d_in = h_seq if c.binarize == "pre_rnn" else z_seq
         d_seq = self.decoder_rnn(d_in)
         x_recon = self._cnn(self.decoder_cnn,
-                            d_seq.reshape(B * T, c.latent_dim), dropout_seed)
+                            d_seq.reshape(B * T, c.latent_dim), dropout_seed,
+                            rows)
         x_recon = x_recon.reshape((B, T) + tuple(x_recon.shape[1:]))
         return RBVAEOutput(x_recon=x_recon, h_seq=h_seq, z_seq=z_seq,
                            logits=logits)

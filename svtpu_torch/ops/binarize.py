@@ -1,7 +1,8 @@
 """Binarization primitives: Binary-Concrete and binary Gumbel-Softmax
 (``svtpu/ops/binarize.py:22-86``).
 
-Noise comes from an explicit ``torch.Generator`` (in place of a JAX key) or
+Noise comes from an explicit ``torch.Generator`` (in place of a JAX key; or
+a ``draws.ShardedGenerator``, one data-parallel rank's rows of it) or
 from an injected uniform tensor ``u`` — the latter lets a test feed the JAX
 package and the port the same random numbers. With neither, the path is
 deterministic. As in the reference, ``u`` and all the arithmetic are in the
@@ -13,15 +14,15 @@ from typing import Optional
 
 import torch
 
+from svtpu_torch.ops import draws
 
-def _uniform(shape, like: torch.Tensor,
-             generator: Optional[torch.Generator],
+
+def _uniform(shape, like: torch.Tensor, generator: draws.Source,
              u: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     if u is not None:
         return u.to(device=like.device, dtype=like.dtype)
     if generator is not None:
-        return torch.rand(shape, generator=generator, dtype=like.dtype,
-                          device=like.device)
+        return draws.rand(shape, generator, like.dtype, like.device)
     return None
 
 

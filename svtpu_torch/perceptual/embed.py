@@ -1,11 +1,14 @@
-"""Batched perceptual-embedding encoder on one card; the port of
-``svtpu/perceptual/embed.py``.
+"""Batched perceptual-embedding encoder, on one card or data-parallel over
+a mesh; the port of ``svtpu/perceptual/embed.py``.
 
 Only the AutoencoderKL runs (no UNet or CLIP); uint8 frames travel to the
 card and are normalised there; the posterior is sampled
 (``posterior.sample()``, the reference's ``ddpm.py:542-549``) or taken at
 its mode. Latents come back as NHWC ``[N, H/8, W/8, 4]`` float32 numpy
-arrays, scaled by ``scale_factor``.
+arrays, scaled by ``scale_factor``. On a mesh whose data axis has a group,
+each rank encodes its rows of every batch, with the posterior noise of the
+whole batch drawn and sliced (``ops/draws.py``), and the latents are
+all-gathered: every rank returns what one process would.
 
 ``load_frame_pm1`` decodes an image file as the reference does (PIL,
 imported where it is used), and ``precompute_embeddings`` turns a frame
@@ -23,6 +26,9 @@ import torch
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import PerceptualConfig
 from svtpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
+from svtpu_torch.ops.draws import GlobalRows, ShardedGenerator
+from svtpu_torch.parallel.distributed import local_batch_to_global
+from svtpu_torch.parallel.mesh import make_mesh, pad_to_multiple
 
 
 def preprocess_size(resize_wh: Tuple[int, int]) -> Tuple[int, int]:
@@ -54,33 +60,59 @@ class PerceptualEncoder:
       stochastic: sample the posterior (True) or take its mode.
       seed: posterior noise; the batch starting at frame ``i`` draws from
         ``batch_seed(seed, i)``, in place of ``fold_in(key(seed), i)``.
-      device: CUDA unless ``"cpu"`` is asked for.
+      device: CUDA unless ``"cpu"`` is asked for (under NCCL, this rank's
+        card).
       use_kernel: the mid-block attention through the hand-written kernel.
+      mesh: a ``parallel.mesh.Mesh`` whose "data" axis splits each batch;
+        ``make_mesh()`` by default (one rank without a process group). The
+        batch size is rounded up to a multiple of the axis.
     """
 
     def __init__(self, params: Mapping[str, torch.Tensor],
                  cfg: PerceptualConfig = PerceptualConfig(),
                  batch_size: int = 8, stochastic: bool = True, seed: int = 0,
-                 device=None, use_kernel: bool = True):
+                 device=None, use_kernel: bool = True, mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = AutoencoderKL(cfg, device=self.device,
                                    use_kernel=use_kernel)
         self.model.load_state_dict(params)
-        self.batch_size = batch_size
+        self.mesh = mesh if mesh is not None else make_mesh()
+        ndata = self.mesh.size("data")
+        self.batch_size = -(-batch_size // ndata) * ndata
         self.stochastic = stochastic
         self.seed = seed
 
+    def _rows(self, n: int):
+        """This rank's rows ``[lo, hi)`` of an ``n``-row batch and the rows
+        each rank encodes (``hi - lo`` padded to it); all of them where the
+        data axis has no group."""
+        if self.mesh.group("data") is None:
+            return 0, n, n
+        per = -(-n // self.mesh.size("data"))
+        lo = min(self.mesh.rank("data") * per, n)
+        return lo, min(lo + per, n), per
+
     def _encode(self, frames_u8: torch.Tensor, offset: int) -> torch.Tensor:
-        x = frames_u8.to(self.device).float() * (2.0 / 255.0) - 1.0
+        n = len(frames_u8)
+        lo, hi, per = self._rows(n)
+        part = frames_u8[lo:hi]
+        if len(part) < per:              # equal shapes for the all-gather
+            part = torch.cat([part, frames_u8[-1:].expand(
+                (per - len(part),) + tuple(frames_u8.shape[1:]))])
+        x = part.to(self.device).float() * (2.0 / 255.0) - 1.0
         post = DiagonalGaussian.from_moments(self.model.encode(x))
         if self.stochastic:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(batch_seed(self.seed, offset))
+            if self.mesh.group("data") is not None:
+                rows = torch.arange(lo, lo + per).clamp(max=n - 1)
+                gen = ShardedGenerator(gen, GlobalRows(rows, n))
             z = post.sample(gen)
         else:
             z = post.mode()
-        return self.cfg.scale_factor * z
+        return local_batch_to_global(self.cfg.scale_factor * z,
+                                     self.mesh)[:n]
 
     def encode_frames(self, frames_u8: np.ndarray) -> np.ndarray:
         """``[N, H, W, 3]`` uint8 → ``[N, H/8, W/8, 4]`` float32 latents."""
@@ -93,15 +125,21 @@ class PerceptualEncoder:
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
 
     def decode_latents(self, z_nhwc: np.ndarray) -> np.ndarray:
-        """Scaled latents → [0, 1] pixels ``[N, H, W, 3]`` float32."""
-        z = torch.from_numpy(np.ascontiguousarray(z_nhwc, np.float32))
+        """Scaled latents → [0, 1] pixels ``[N, H, W, 3]`` float32; on a
+        mesh each batch is padded to a multiple of the data axis
+        (``pad_to_multiple``) and split over it."""
+        z = np.ascontiguousarray(z_nhwc, np.float32)
+        ndata = self.mesh.size("data")
         out = []
         with torch.inference_mode():
             for i in range(0, len(z), self.batch_size):
-                zb = z[i:i + self.batch_size].to(self.device) \
+                zb, n = pad_to_multiple(z[i:i + self.batch_size], ndata)
+                lo, hi, _ = self._rows(len(zb))
+                zb = torch.from_numpy(zb[lo:hi]).to(self.device) \
                     / self.cfg.scale_factor
-                x = self.model.decode(zb).float()
-                out.append(torch.clamp((x + 1.0) * 0.5, 0.0, 1.0)
+                x = torch.clamp((self.model.decode(zb).float() + 1.0) * 0.5,
+                                0.0, 1.0)
+                out.append(local_batch_to_global(x, self.mesh)[:n]
                            .cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
 

@@ -1,5 +1,6 @@
 """RBVAE trainer for the contrastive, triplet and simple objectives
-(``svtpu/training/trainer.py:78-1088``), on one device.
+(``svtpu/training/trainer.py:78-1088``), on one device or over a mesh of
+ranks (``parallel/``).
 
 The train step runs eagerly: both pair members go through the model as one
 ``[2B, S]`` batch, uint8 frames are normalised on the device, and Adam
@@ -22,6 +23,17 @@ package are where eager PyTorch differs from ``jit``:
     (``svtpu/ops/lstm.py:57-61``). Adam would move each by ~lr a step, the
     sum twice as far as in ``svtpu``, so ``init_state`` folds ``bias_hh``
     into ``bias_ih`` and leaves it out of the optimizer (``fold_lstm_biases``).
+  * Parallelism is one process a rank over ``torch.distributed``, where
+    ``svtpu`` shards one program. On a "data" axis every rank builds the
+    same global index batch and trains on its rows; its noise and dropout
+    masks are the global batch's draws at those rows (``ops/draws.py``), so
+    the ranks train the model one device trains. Gradients are averaged
+    over the axis before Adam, parameters broadcast from rank 0 at
+    ``init_state``, metrics averaged; validation and the probes run whole
+    on every rank, and rank 0 writes the checkpoints. A "model" axis shards
+    ``encoder_cnn.fc`` row-wise and ``decoder_cnn.fc`` column-wise with
+    torch's tensor-parallel styles (``parallel/sharding.py``); checkpoints
+    hold the whole tensors.
 
 The kernels are inference-only in both packages: the train step takes the
 plain trunk and sampler, and the probes (``encode_frames``) route through
@@ -39,6 +51,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig, TrainConfig
@@ -49,7 +62,13 @@ from svtpu_torch.evaluation.common import encode_chunks
 from svtpu_torch.evaluation.hamming import adjacent_hamming, modal_codes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops import losses
+from svtpu_torch.ops.draws import GlobalRows
 from svtpu_torch.ops.image import to_float01
+from svtpu_torch.parallel import distributed
+from svtpu_torch.parallel.mesh import make_mesh
+from svtpu_torch.parallel.sharding import (full_optimizer_state,
+                                           full_state_dict, local_state,
+                                           parallelize_rbvae)
 from svtpu_torch.training.checkpoints import BestCheckpointer
 from svtpu_torch.training.metrics import MetricsWriter
 from svtpu_torch.training.schedules import temperature_schedule
@@ -71,13 +90,17 @@ class Noise:
     push. Pass ``k`` draws its Binary-Concrete noise from a generator on
     ``device`` seeded with ``fold(key, 2k)``, or takes ``uniforms[k]``
     where uniforms are given (tests feed JAX's draws so), and its dropout
-    masks from ``fold(key, 2k + 1)``.
+    masks from ``fold(key, 2k + 1)``. ``rows``: the batch is a
+    data-parallel rank's rows of a global one, and both draws are taken at
+    them (``ops/draws.py``).
     """
 
-    def __init__(self, key: Optional[int], device, uniforms=None):
+    def __init__(self, key: Optional[int], device, uniforms=None,
+                 rows: Optional[GlobalRows] = None):
         self.key = key
         self.device = torch.device(device)
         self.uniforms = uniforms
+        self.rows = rows
 
     def generator(self, k: int) -> Optional[torch.Generator]:
         if self.uniforms is not None or self.key is None:
@@ -153,7 +176,8 @@ def _forward(model, x, temperature, hard, noise: Noise, k: int,
     return model(x, temperature, hard, noise_ratio,
                  deterministic=deterministic, generator=noise.generator(k),
                  u=noise.u(k),
-                 dropout_seed=None if deterministic else noise.dropout_seed(k))
+                 dropout_seed=None if deterministic else noise.dropout_seed(k),
+                 rows=noise.rows)
 
 
 def _encode_h(model, cfg, x, temperature, hard, noise: Noise, k: int,
@@ -163,7 +187,8 @@ def _encode_h(model, cfg, x, temperature, hard, noise: Noise, k: int,
     scale = cfg.noise_ratio if model.cfg.has_noise_ratio else 1.0
     _, h, z = model._encode_to_latent(
         x, temperature, hard, scale, noise.generator(k), noise.u(k),
-        dropout_seed=None if deterministic else noise.dropout_seed(k))
+        dropout_seed=None if deterministic else noise.dropout_seed(k),
+        rows=noise.rows)
     return h, z
 
 
@@ -298,32 +323,41 @@ def simple_objective(model: Seq2SeqBinaryVAE, cfg: TrainConfig, batch,
 
 
 class Trainer:
-    """Single-device RBVAE trainer.
+    """RBVAE trainer, on one device or over a mesh of ranks.
 
     Args:
       model_cfg / train_cfg: typed configs.
       store: FrameStore or EmbeddingStore.
       splits: SplitIndices of the video.
       flags: transition flags (for the consistency labels).
+      mesh: a ``parallel.mesh.Mesh``; by default ``make_mesh`` of the
+        config's ``mesh_shape`` and ``mesh_axes``, which is one rank without
+        a process group. Every rank of the process group builds the trainer.
       seed: overrides ``train_cfg.seed``.
       labels_by_index: an explicit frame id → state id map in place of the
         flags' labels.
-      device: CUDA unless ``"cpu"`` is asked for (raises without a card).
+      device: CUDA unless ``"cpu"`` is asked for (raises without a card);
+        under NCCL, this rank's card.
     """
 
     def __init__(self, model_cfg: RBVAEConfig, train_cfg: TrainConfig,
                  store, splits: SplitIndices, flags: Sequence[int], *,
-                 seed: Optional[int] = None,
+                 mesh=None, seed: Optional[int] = None,
                  labels_by_index: Optional[dict] = None, device=None):
         self.device = resolve_device(device)
-        if "model" in train_cfg.mesh_axes:
-            raise NotImplementedError(
-                "a 'model' mesh axis (tensor parallelism) is not ported to "
-                "svtpu_torch yet")
-        if any(d > 1 for d in train_cfg.mesh_shape):
-            raise NotImplementedError(
-                "svtpu_torch trains on one device; data parallelism is not "
-                "ported yet")
+        self.mesh = mesh if mesh is not None else make_mesh(
+            train_cfg.mesh_shape, train_cfg.mesh_axes)
+        # Batches split over the data axis: round the batch size up to a
+        # multiple, and under lr_scaling="linear" scale the learning rate
+        # with it (svtpu/training/trainer.py:299-315).
+        ndata = self.mesh.size("data")
+        if train_cfg.batch_size % ndata:
+            new_bs = -(-train_cfg.batch_size // ndata) * ndata
+            new_lr = (train_cfg.learning_rate * new_bs / train_cfg.batch_size
+                      if train_cfg.lr_scaling == "linear"
+                      else train_cfg.learning_rate)
+            train_cfg = dataclasses.replace(
+                train_cfg, batch_size=new_bs, learning_rate=new_lr)
         self.mcfg = model_cfg
         self.cfg = train_cfg
         self.store = store
@@ -331,7 +365,21 @@ class Trainer:
         self.flags = list(flags)
         self.labels_by_index = labels_by_index
         self.seed = train_cfg.seed if seed is None else seed
-        self.writer = MetricsWriter(train_cfg.log_dir)
+        # This rank's rows [lo, hi) of every global batch, and their rows
+        # of the [2B, S] pair pass; all rows where the data axis has no
+        # group.
+        self._data_group = self.mesh.group("data")
+        b = train_cfg.batch_size // ndata
+        self._lo = self.mesh.rank("data") * b
+        self._hi = self._lo + b
+        self._rows = None
+        if self._data_group is not None:
+            mine = torch.arange(self._lo, self._hi)
+            self._rows = GlobalRows(
+                torch.cat([mine, mine + train_cfg.batch_size]).to(
+                    self.device), 2 * train_cfg.batch_size)
+        self.writer = MetricsWriter(train_cfg.log_dir if distributed.is_main()
+                                    else None)
         self._epoch_metric_names: list = []
         # Step s of the run draws from batch_seed(_base_seed, s); a
         # restart with restart_reroll="stream" moves it.
@@ -359,14 +407,29 @@ class Trainer:
 
     def init_state(self, seed_offset: int = 0) -> TrainState:
         """A model drawn from ``seed + seed_offset``, with one bias per
-        LSTM layer, and a fresh Adam (optax's defaults)."""
+        LSTM layer, and a fresh Adam (optax's defaults). On a mesh with a
+        process group the parameters are rank 0's, and a "model" axis
+        shards the projections."""
         model = Seq2SeqBinaryVAE(
             self.mcfg, device=self.device,
             generator=torch.Generator().manual_seed(self.seed + seed_offset))
+        if self.mesh.device_mesh is not None:
+            distributed.broadcast_(list(model.state_dict().values()),
+                                   src=int(self.mesh.devices.flat[0]))
         fold_lstm_biases(model)
-        opt = torch.optim.Adam(
-            [p for p in model.parameters() if p.requires_grad],
-            lr=self.cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        if "model" in self.mesh.axis_names:
+            parallelize_rbvae(model, self.mesh)
+        params = [p for p in model.parameters() if p.requires_grad]
+        groups = [{"params": [p for p in params
+                              if not isinstance(p, DTensor)]}]
+        sharded = [p for p in params if isinstance(p, DTensor)]
+        if sharded:
+            # The multi-tensor Adam on the card refuses a list that mixes
+            # DTensors and tensors: the sharded ones form a group of their
+            # own, stepped as one list.
+            groups.append({"params": sharded})
+        opt = torch.optim.Adam(groups, lr=self.cfg.learning_rate,
+                               betas=(0.9, 0.999), eps=1e-8)
         return TrainState(step=0, model=model, optimizer=opt)
 
     # ----------------------------------------------------------- train step
@@ -395,30 +458,41 @@ class Trainer:
             return float(h[:, 0].abs().mean())
 
     def _train_step(self, state: TrainState, batch: torch.Tensor):
-        """One optimizer step; returns the step's metrics (tensors on the
-        device, not read back) and its temperature (a host float)."""
+        """One optimizer step on this rank's rows of a batch; returns the
+        step's metrics (this rank's, tensors on the device, not read back)
+        and its temperature (a host float)."""
         cfg = self.cfg
         batch = self._batch(batch)
         state.step += 1
         temp = max(temperature_schedule(
             state.step, cfg.init_temperature, cfg.final_temperature,
             cfg.anneal_rate, cfg.num_steps_to_update), self._temp_floor)
-        noise = Noise(batch_seed(self._base_seed, state.step), self.device)
+        noise = Noise(batch_seed(self._base_seed, state.step), self.device,
+                      rows=self._rows)
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = self._objective()(state.model, cfg, batch, temp,
                                            False, noise, deterministic=False)
         total.backward()
+        distributed.all_reduce_mean_(
+            [p.grad for p in state.model.parameters() if p.grad is not None],
+            self._data_group, self.mesh.size("data"))
         state.optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}, temp
 
+    def _data_mean(self, vec: torch.Tensor) -> torch.Tensor:
+        """A metric vector averaged over the data axis."""
+        distributed.all_reduce_mean_([vec], self._data_group,
+                                     self.mesh.size("data"))
+        return vec
+
     def _upload_epoch(self, epoch: int) -> Optional[torch.Tensor]:
-        """The epoch's stacked ``[steps, B, 2, S]`` row indices, on the
-        device (one copy); ``None`` for an empty epoch."""
+        """This rank's rows of the epoch's stacked ``[steps, B, 2, S]`` row
+        indices, on the device (one copy); ``None`` for an empty epoch."""
         batches = list(self.train_batcher.epoch_indices(epoch))
         if not batches:
             return None
-        return torch.from_numpy(np.stack(batches).astype(np.int64)).to(
-            self.device)
+        idx = np.stack(batches)[:, self._lo:self._hi]
+        return torch.from_numpy(idx.astype(np.int64)).to(self.device)
 
     def _fused_steps(self, state: TrainState, idx: torch.Tensor):
         """Every step of a staged epoch, with no wait for the device: the
@@ -441,10 +515,11 @@ class Trainer:
         if idx is None:
             return {}, 0
         vec, temps = self._fused_steps(state, idx)
-        sums = dict(zip(self._epoch_metric_names, vec.cpu().double().tolist()))
+        sums = dict(zip(self._epoch_metric_names,
+                        self._data_mean(vec).cpu().double().tolist()))
         sums["temperature"] = temps
         return ({k: v / len(idx) for k, v in sums.items()},
-                int(np.prod(idx.shape[:4])))
+                len(idx) * self.cfg.batch_size * int(np.prod(idx.shape[2:])))
 
     def _per_step_epoch(self, state: TrainState, epoch: int,
                         log_every: int = 0):
@@ -452,14 +527,21 @@ class Trainer:
         (row indices with the bank, frames without), every step's metrics
         read back. Returns the epoch's mean metrics and its frames."""
         sums, nb, frames = {}, 0, 0
-        batches = (self.train_batcher.epoch_indices(epoch)
-                   if self._bank is not None
-                   else self.train_batcher.epoch(epoch))
+        lo, hi = self._lo, self._hi
+        if self._bank is not None:
+            batches = (ix[lo:hi]
+                       for ix in self.train_batcher.epoch_indices(epoch))
+        else:
+            batches = (self.store.gather(ix[lo:hi]) for ix in
+                       self.train_batcher.epoch_frame_indices(epoch))
         for b in prefetch_to_device(batches, self.device):
             metrics, temp = self._train_step(state, b)
             nb += 1
-            frames += int(np.prod(b.shape[:3]))
-            m = {k: float(v) for k, v in metrics.items()}
+            frames += self.cfg.batch_size * int(np.prod(b.shape[1:3]))
+            names = sorted(metrics)
+            vec = self._data_mean(torch.stack([metrics[k].float()
+                                               for k in names]))
+            m = dict(zip(names, vec.cpu().double().tolist()))
             m["temperature"] = temp
             if log_every and nb % log_every == 0:
                 self.writer.scalars("Batch", m, state.step)
@@ -482,6 +564,24 @@ class Trainer:
             m["total_loss"] = (m["recon_loss"] + cfg.beta_kl * m["kl_loss"]
                                + cfg.alpha * m["contrast_loss"]) / coeff
         return m
+
+    def _full_tree(self, state: TrainState) -> dict:
+        """The checkpoint tree, sharded tensors whole (every rank calls
+        it)."""
+        return {"model": full_state_dict(state.model),
+                "optimizer": full_optimizer_state(
+                    state.optimizer.state_dict())}
+
+    def _load_full(self, state: TrainState, tree: dict) -> None:
+        """Load a checkpoint tree of whole tensors into this rank's
+        blocks."""
+        name = {id(p): n for n, p in state.model.named_parameters()}
+        names = [name[id(p)] for g in state.optimizer.param_groups
+                 for p in g["params"]]
+        model_sd, opt_sd = local_state(state.model, tree["model"],
+                                       tree["optimizer"], names)
+        state.model.load_state_dict(model_sd)
+        state.optimizer.load_state_dict(opt_sd)
 
     # ------------------------------------------------------------- encoding
 
@@ -558,7 +658,8 @@ class Trainer:
                      temperature: float = 0.5) -> dict:
         """Bare recon + KL loop over whole state segments at a fixed
         temperature; step ``s`` (0-based, as ``svtpu`` folds it here) draws
-        from ``batch_seed(seed + 1, s)``."""
+        from ``batch_seed(seed + 1, s)``. A step is one segment, so on a
+        mesh every rank trains on the whole of it."""
         cfg = self.cfg
         num_epochs = num_epochs or cfg.num_epochs
         batcher = SegmentBatcher(self.store, state_segments, seed=self.seed)
@@ -613,8 +714,7 @@ class Trainer:
         start_epoch = 0
         if resume and ckpt and ckpt.exists("latest"):
             tree, meta = ckpt.restore("latest")
-            state.model.load_state_dict(tree["model"])
-            state.optimizer.load_state_dict(tree["optimizer"])
+            self._load_full(state, tree)
             start_epoch = int(meta["epoch"]) + 1
             history["best_metric"] = float(meta.get("best_metric",
                                                     history["best_metric"]))
@@ -756,21 +856,23 @@ class Trainer:
                         and (epoch - start_epoch) % cfg.latest_every == 0)
             if ckpt and (better or melk_requested[0] or periodic
                          or epoch == num_epochs - 1):
-                ckpt.save(
-                    {"model": state.model.state_dict(),
-                     "optimizer": state.optimizer.state_dict()},
-                    epoch=epoch, metric=metric, sel_key=sel_key,
-                    extra={"select_by": cfg.select_by,
-                           "best_metric": history["best_metric"],
-                           "best_key": list(history["best_key"]),
-                           "ham_vector": [int(h) for h in ham],
-                           "global_step": state.step})
+                tree = self._full_tree(state)      # a collective under TP
+                if distributed.is_main():
+                    ckpt.save(
+                        tree,
+                        epoch=epoch, metric=metric, sel_key=sel_key,
+                        extra={"select_by": cfg.select_by,
+                               "best_metric": history["best_metric"],
+                               "best_key": list(history["best_key"]),
+                               "ham_vector": [int(h) for h in ham],
+                               "global_step": state.step})
                 melk_requested[0] = False
             history["train_losses"].append(train_losses)
             history["val_losses"].append(val_losses)
             # SVTPU_EPOCH_LOG=N prints a heartbeat every N epochs.
             hb = int(os.environ.get("SVTPU_EPOCH_LOG", "0") or 0)
-            if hb and (epoch % hb == 0 or epoch == num_epochs - 1):
+            if hb and distributed.is_main() and (
+                    epoch % hb == 0 or epoch == num_epochs - 1):
                 vals = (f"cons {val_losses['consistency_score']:.3f} "
                         f"det {val_losses['det_consistency_score']:.3f} "
                         f"sep {val_losses['state_separation']:.2f} "

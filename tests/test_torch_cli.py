@@ -2,9 +2,9 @@
 counterparts of ``tests/test_cli_eval.py`` other than
 ``test_train_multi_video`` (in ``tests/test_torch_multi.py``), ``encode``
 and ``embed`` against ``svtpu.cli`` on shared weights, and the guards: no
-card and no ``--device`` exits, eval commands without matplotlib, the
-command that waits for a later slice (``sweep``), and an import that pulls
-in neither matplotlib nor sklearn nor PIL. The video commands are in
+card and no ``--device`` exits, eval commands without matplotlib, and an
+import that pulls in neither matplotlib nor sklearn nor PIL. ``sweep`` is
+in ``tests/test_torch_sweeps.py``. The video commands are in
 ``tests/test_torch_video.py``."""
 import functools
 import json
@@ -388,6 +388,8 @@ MODEL_COMMANDS = {
     "encode": lambda d, t: ["encode", str(d), "--ckpt", str(t)],
     "train": lambda d, t: ["train", "--video", "chinese_chess",
                            "--frames-dir", str(d)],
+    "sweep": lambda d, t: ["sweep", "--video", "chinese_chess",
+                           "--frames-dir", str(d), "--no-wandb"],
     "embed": lambda d, t: ["embed", str(d), str(t / "e.npy"), "--ckpt",
                            str(t / "sd.ckpt")],
     "interpolate": lambda d, t: ["interpolate", "a.jpg", "b.jpg",
@@ -409,14 +411,6 @@ def test_no_card_and_no_device_exits(cmd, video_dir, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device.*--device cpu"):
         cli.main(MODEL_COMMANDS[cmd](video_dir, tmp_path / "missing"))
-
-
-@pytest.mark.parametrize("argv, item", [
-    (["sweep", "--video", "chinese_chess"], "A.6"),
-], ids=lambda v: v[0] if isinstance(v, list) else v)
-def test_unported_commands_name_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=f"waits for ROADMAP §{item}"):
-        cli.main(argv)
 
 
 def test_download_weights_is_not_ported():

@@ -321,11 +321,20 @@ def test_best_checkpointer_modes_and_sel_key(tmp_path):
 
 
 def test_trainer_checks_its_mesh(synth_video):
+    """Without a process group the world is one rank: a mesh larger than it
+    raises ValueError naming both sizes, and the (1,) and (1, 1) meshes
+    train (one step each)."""
     for bad in (dict(mesh_shape=(1, 2), mesh_axes=("data", "model")),
                 dict(mesh_shape=(4,))):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="needs . ranks; there are 1"):
             _trainer(synth_video, **bad)
-    _trainer(synth_video, mesh_shape=(1,))
+    for ok in (dict(mesh_shape=(1,)),
+               dict(mesh_shape=(1, 1), mesh_axes=("data", "model"))):
+        tr = _trainer(synth_video, **ok)
+        state = tr.init_state()
+        batch = next(iter(tr.train_batcher.epoch_indices(0)))
+        metrics, _ = tr._train_step(state, torch.from_numpy(batch))
+        assert state.step == 1 and np.isfinite(float(metrics["total_loss"]))
 
 
 def test_metric_names_match_svtpu(synth_video):
