@@ -75,7 +75,17 @@ on and their launches counted:
     meshes, a data-parallel ``PerceptualEncoder`` at the SD first stage's
     widths) against the runs without a mesh, and a ``torch.profiler``
     trace of 5 flagship train steps: the device's busy share and its top
-    ops.
+    ops;
+  * several cards (``phase_multi_card``), at world =
+    ``torch.cuda.device_count()``: the CLI's ``train`` (bf16 and f32) and
+    ``embed`` under ``python3 -m torch.distributed.run``, one rank a card,
+    against the commands without a launcher (bit for bit at world 1), one
+    set of files written; at four cards or more the flagship ``Trainer``
+    on (world,) and (world/2, 2) meshes and a data-parallel
+    ``PerceptualEncoder`` with exact per-rank launches (on fewer cards the
+    phase says it did not run them); the train step, its gradient
+    all-reduce against the NVLink bound, and the SD encode at world 1 and
+    world N.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -2891,9 +2901,9 @@ def phase_rest_path(card: str) -> dict:
     require(got["fused_conv01"] > 0 and got["lstm_binary_concrete"] > 0,
             "the mesh trainers' probes did not run the kernels")
     total = {k: total[k] + got[k] for k in total}
-    print("distributed: more than one rank cannot be shown on one card "
-          "(NCCL takes one rank a GPU); the 2- and 4-rank semantics are "
-          "held by the CPU tests (tests/test_torch_parallel.py, gloo)")
+    print("distributed: one rank here; more ranks, one a card, in "
+          "phase_multi_card (the 2- and 4-rank semantics also in the CPU "
+          "tests, tests/test_torch_parallel.py, gloo)")
 
     # 6. A trace of 5 fused flagship train steps.
     tr = Trainer(mcfg, tcfg, store, splits, meta.flags, device="cuda")
@@ -2920,6 +2930,741 @@ def phase_rest_path(card: str) -> dict:
     print(f"rest path: all checks passed in "
           f"{time.perf_counter() - t_phase:.1f} s; launches {total} [{card}]")
     return {"launches": total, "trace": br}
+
+
+def kernel_counters() -> dict:
+    """The four kernel wrappers by name; each counts its launches."""
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+
+    return {"fused_conv01": fused_conv01,
+            "lstm_binary_concrete": lstm_binary_concrete,
+            "binary_concrete": binary_concrete_fused,
+            "flash_attention": flash_attention}
+
+
+def zero_counts(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters: dict) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def nvlink_gbps():
+    """Card 0's NVLink rate in one direction, GB/s: the sum of its links'
+    rates as ``nvidia-smi nvlink -s -i 0`` prints them ("Link k: 26.562
+    GB/s"); None where it lists no active link."""
+    proc = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"],
+                          capture_output=True, text=True)
+    rates = [float(m) for m in re.findall(r"Link \d+: ([0-9.]+) GB/s",
+                                          proc.stdout)]
+    return sum(rates) if rates else None
+
+
+class Torchrun:
+    """``python3 -m torch.distributed.run --standalone --nproc-per-node
+    world <args>`` started from the repo root, its output to files under
+    ``logdir``. ``wait`` gives its return code (0
+    only when every rank exited 0), its output and its wall seconds;
+    ``close`` kills the launcher and its ranks if they still run."""
+
+    def __init__(self, world: int, args: list, logdir: Path, **env):
+        self.t0 = time.perf_counter()
+        self.out = open(logdir / f"torchrun{id(self)}.out", "w+")
+        self.err = open(logdir / f"torchrun{id(self)}.err", "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(world), *[str(a) for a in args]],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT), **env),
+            stdout=self.out, stderr=self.err, text=True)
+
+    def wait(self, timeout: float = 300):
+        try:
+            rc = self.proc.wait(timeout=timeout)
+            self.out.seek(0)
+            self.err.seek(0)
+            return (rc, self.out.read(), self.err.read(),
+                    time.perf_counter() - self.t0)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            # SIGTERM: the launcher stops its ranks (each in a session of
+            # its own) before it exits.
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+
+def flagship_step_ms(tr, steps: int = 12):
+    """The median CUDA-event time of a fused flagship train step (after 2),
+    over steps of epoch 0; every rank of ``tr``'s mesh steps with it."""
+    st = tr.init_state()
+    idx = tr._upload_epoch(0)
+    for i in range(3):
+        tr._train_step(st, idx[i % len(idx)])
+    times = []
+    for i in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr._train_step(st, idx[i % len(idx)])
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times[2:]), st
+
+
+def embed_seconds(enc, frames: np.ndarray) -> float:
+    """Median host seconds of ``enc.encode_frames(frames)`` over 3 runs
+    after one warm-up (latents back on the host)."""
+    enc.encode_frames(frames)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_frames(frames)
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+# Across cards, the parameters after 2 flagship epochs against the run
+# without a launcher or mesh, as a share of each tensor's largest |value|:
+# about 3x the largest sound reading (PERF.md §6), and below what a dropped
+# shard or a learning rate scaled by the world gives (``multi_card_worker``
+# measures both and the phase requires them above the f32 limit).
+F32_PARAM_LIMIT = 1e-1
+F64_PARAM_LIMIT = 5e-4
+
+
+def param_limit(kind: str, latents: float) -> float:
+    """The limit of a multi-card run named ``train_<dtype>_s<seed>`` (none
+    for bf16), or ``latents`` for an embed."""
+    if not kind.startswith("train"):
+        return latents
+    return {"bf16": float("inf"), "f32": F32_PARAM_LIMIT,
+            "f64": F64_PARAM_LIMIT}[kind.split("_")[1]]
+
+
+def rel_errors(got: dict, ref: dict) -> dict:
+    """Each tensor's max |difference| over its max |value| (f32)."""
+    return {k: float((got[k].float() - v.float()).abs().max()
+                     / v.float().abs().max().clamp_min(1e-30))
+            for k, v in ref.items()}
+
+
+def latent_error(got: dict, ref: dict) -> float:
+    """Max |difference| of two ``embed`` dicts over their max |value|."""
+    top = max(float(np.abs(v).max()) for v in ref.values())
+    return max(float(np.abs(got[k] - v).max()) for k, v in ref.items()) / top
+
+
+def multi_card_worker(out_dir: str) -> None:
+    """One rank of ``phase_multi_card``'s Python-API meshes (``chip_smoke.py
+    --multi-card-worker DIR`` under ``torch.distributed.run``, 4 or more
+    ranks). First, with no process group, the runs without a mesh on this
+    rank's card: the flagship ``Trainer`` (f32, both kernels, 2 fused
+    epochs, deterministic algorithms) and ``PerceptualEncoder`` on 8 seeded
+    704x1280 frames (bf16 stochastic, f32 deterministic). Then, over NCCL,
+    the same on a (world,) data mesh and, for the trainer, a (world/2, 2)
+    data x model mesh; each run's per-rank launches; two faults on the
+    (world,) mesh, for the parameter limit to see; and on the (world,)
+    mesh the timings: the flagship's bf16 step at global batch 32, its
+    packed gradient all-reduce (``all_reduce_mean_``), and the SD encode of
+    16 frames. Writes ``rank<r>.json`` into ``DIR``."""
+    import contextlib
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from svtpu_torch.config import (PerceptualConfig, TrainConfig,
+                                    rbvae_variant)
+    from svtpu_torch.parallel import distributed
+    from svtpu_torch.parallel.mesh import make_mesh
+    from svtpu_torch.parallel.sharding import full_state_dict
+    from svtpu_torch.perceptual.embed import PerceptualEncoder
+    from svtpu_torch.training.trainer import Trainer
+    from svtpu_torch.utils import profiling
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ["WORLD_SIZE"])
+    counters = kernel_counters()
+    meta, splits, ids, states = train_video()
+    store = MemoryStore(video_frames(meta, states), ids)
+    mcfg = rbvae_variant("contrastive", LATENT, compute_dtype="float32",
+                         pallas_trunk=True, pallas_sampler=True)
+    tcfg = TrainConfig(**FLAGSHIP_TRAIN)
+    sd_frames = np.random.default_rng(13).integers(
+        0, 256, (2 * PERCEP_BATCH, 704, 1280, 3), np.uint8)
+    weights = percep_weights(sd_frames[:2])
+    encoders = {"bf16 stochastic": (PerceptualConfig(), True),
+                "f32 deterministic": (PerceptualConfig(
+                    compute_dtype="float32"), False)}
+
+    def trainer(mesh, cfg=mcfg, tcfg=tcfg):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return Trainer(cfg, tcfg, store, splits, meta.flags, mesh=mesh,
+                           device="cuda")
+
+    def step_grads(mesh=None):
+        """The gradients of epoch 0's first step, after the all-reduce
+        (whole tensors), in f64 compute: in f32 a logit within rounding of
+        the sampler's threshold flips a hard code, and the decoder's fc
+        gradient moves by a whole row (6.6e-4 of its max at world 4)."""
+        tr = trainer(mesh, dataclasses.replace(mcfg,
+                                               compute_dtype="float64"))
+        st = tr.init_state()
+        metrics, _ = tr._train_step(st, tr._upload_epoch(0)[0])
+        grads = {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+                     else p.grad).float().cpu()
+                 for n, p in st.model.named_parameters()
+                 if p.grad is not None}
+        names = sorted(metrics)
+        grads["losses"] = tr._data_mean(torch.stack(
+            [metrics[k].double() for k in names])).cpu()
+        del tr, st
+        torch.cuda.empty_cache()   # f64 activations: ~4x the f32 step's
+        return grads
+
+    def train(mesh=None, tcfg=tcfg):
+        zero_counts(counters)
+        tr = trainer(mesh, tcfg=tcfg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            hist = tr.train(num_epochs=2)
+        model = hist["final_state"].model
+        params = {k: v.float().cpu() for k, v in
+                  full_state_dict(model).items()}
+        return model, params, read_counts(counters), tr._data_group
+
+    def encode(name, mesh=None):
+        cfg, stochastic = encoders[name]
+        zero_counts(counters)
+        enc = PerceptualEncoder(weights["ae"], cfg, batch_size=PERCEP_BATCH,
+                                stochastic=stochastic, seed=3, mesh=mesh)
+        z = enc.encode_frames(sd_frames[:PERCEP_BATCH])
+        torch.cuda.synchronize()
+        return z, read_counts(counters)
+
+    def say(what):
+        print(f"[rank {os.environ['RANK']}] {what}", flush=True)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    say("the runs without a mesh")
+    ref_grads = step_grads()
+    _, ref_params, ref_launches, _ = train()
+    ref_z = {name: encode(name) for name in encoders}
+    distributed.initialize()
+    rank = dist.get_rank()
+    out = {"rank": rank, "world": world, "device":
+           str(torch.cuda.current_device()), "backend": dist.get_backend(),
+           "reference_launches": ref_launches,
+           "reference_encode_launches": {k: v[1] for k, v in ref_z.items()}}
+    try:
+        for name, shape, axes in (("data", (world,), ("data",)),
+                                  ("data x model", (world // 2, 2),
+                                   ("data", "model"))):
+            say(f"trainer on a {shape} mesh")
+            grads = step_grads(make_mesh(shape, axes))
+            g_errs = rel_errors(grads, ref_grads)
+            g_worst = max(g_errs, key=g_errs.get)
+            model, params, launches, group = train(make_mesh(shape, axes))
+            errs = rel_errors(params, ref_params)
+            worst = max(errs, key=errs.get)
+            fc = model.encoder_cnn.fc.weight
+            out[f"trainer {name}"] = {
+                "grad_errs": {k: v for k, v in g_errs.items() if v > 1e-6},
+                "shape": list(shape), "launches": launches,
+                "parallel": group is not None,
+                "fc_placements": str(getattr(fc, "placements", None)),
+                "grad_rel_err": g_errs[g_worst], "grad_worst": g_worst,
+                "max_rel_err": errs[worst], "worst": worst,
+                "worst_abs": float((params[worst]
+                                    - ref_params[worst]).abs().max()),
+                "worst_max": float(ref_params[worst].abs().max())}
+        # Two faults the parameter limit must see, on the (world,) mesh: the
+        # last rank's gradients dropped from the all-reduce, and the
+        # learning rate scaled by the world.
+        say("fault controls")
+        all_reduce_mean_ = distributed.all_reduce_mean_
+
+        def dropped_shard(tensors, group, n):
+            if group is not None and dist.get_rank(group) == n - 1:
+                for t in tensors:
+                    (t.to_local() if isinstance(t, DTensor) else t).zero_()
+            all_reduce_mean_(tensors, group, n)
+
+        distributed.all_reduce_mean_ = dropped_shard
+        try:
+            _, params, _, _ = train(make_mesh((world,), ("data",)))
+        finally:
+            distributed.all_reduce_mean_ = all_reduce_mean_
+        faults = {"a dropped shard": params}
+        _, faults[f"lr x {world}"], _, _ = train(
+            make_mesh((world,), ("data",)), dataclasses.replace(
+                tcfg, learning_rate=tcfg.learning_rate * world))
+        out["faults"] = {k: max(rel_errors(v, ref_params).values())
+                         for k, v in faults.items()}
+        for name in encoders:
+            say(f"encoder {name}")
+            z, launches = encode(name, make_mesh((world,), ("data",)))
+            ref = ref_z[name][0]
+            out[f"encoder {name}"] = {
+                "launches": launches,
+                "max_rel_err": float(np.abs(z - ref).max()
+                                     / np.abs(ref).max())}
+        torch.use_deterministic_algorithms(False)
+        say("timings")
+        # Timings on the (world,) mesh: the CLI's flagship (bf16, svtpu's
+        # kernel defaults), global batch 32.
+        mesh = make_mesh((world,), ("data",))
+        fcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16")
+        tr = Trainer(fcfg, tcfg, store, splits, meta.flags, mesh=mesh,
+                     device="cuda")
+        step_ms, st = flagship_step_ms(tr)
+        grads = [p.grad for p in st.model.parameters() if p.grad is not None]
+        group, n = tr._data_group, mesh.size("data")
+        ar_ms, ar_sp = cuda_ms(lambda: distributed.all_reduce_mean_(
+            grads, group, n), warmup=3, trials=5, iters=20)
+        # 5 more steps, traced on rank 0: does the host hold the card back
+        # at a quarter of the batch?
+        idx = tr._upload_epoch(0)
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = (profiling.trace(tmp) if rank == 0
+                   else contextlib.nullcontext())
+            with ctx:
+                for i in range(5):
+                    tr._train_step(st, idx[i % len(idx)])
+                torch.cuda.synchronize()
+            if rank == 0:
+                out["trace"] = trace_breakdown(Path(tmp), 5)
+        enc = PerceptualEncoder(weights["ae"], PerceptualConfig(),
+                                batch_size=PERCEP_BATCH, seed=3, mesh=mesh)
+        out["timing"] = {
+            "step_ms": step_ms, "local_batch": tr._hi - tr._lo,
+            "grad_bytes": sum(g.numel() * g.element_size() for g in grads),
+            "allreduce_ms": ar_ms, "allreduce_spread": ar_sp,
+            "embed_s": embed_seconds(enc, sd_frames)}
+        distributed.barrier()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_multi_card(card: str) -> dict:
+    """The command line and the meshes over every card of the host, under
+    ``python3 -m torch.distributed.run --standalone --nproc-per-node
+    <world>``, world = ``torch.cuda.device_count()``:
+
+      (a) ``train --preset flagship --epochs 2`` on ``train_video()``'s
+          396 frames as JPEGs, in bf16 and with ``--dtype float32`` (at
+          world > 1 also ``float64``, and f32 and f64 each at seeds 0, 1
+          and 2), and ``embed`` of 16 seeded 720x1280 JPEGs through the SD
+          first stage (``percep_weights``), stochastic and
+          ``--deterministic``: each command one launch of ``-m
+          svtpu_torch.cli``, one after another, the trains with
+          ``SVTPU_DETERMINISTIC=1``. Each is held against the same command
+          without a launcher, run in this process meanwhile (PyTorch's
+          TF32 defaults, as the launched ranks have): at world 1 bit for
+          bit; at world > 1 the parameters within ``F32_PARAM_LIMIT`` (f32)
+          and ``F64_PARAM_LIMIT`` (f64 compute) of each tensor's largest
+          |value| and the (bf16) latents within 2e-2 of theirs, the bf16
+          parameters printed. One checkpoint directory a run and one
+          ``.npy`` a command; rank 0 alone prints; the launcher's exit code
+          0, which it gives only when every rank exited 0.
+      (b) at world >= 4 only, ``chip_smoke.py --multi-card-worker``: the
+          flagship ``Trainer`` (both kernels) on (world,) and (world/2, 2)
+          meshes, one f64-compute step's gradients within 1e-5 of each
+          tensor's max of the step without a mesh, 2 fused f32 epochs with
+          their parameters within ``F32_PARAM_LIMIT``, and two faults on
+          the (world,) mesh (the last rank's gradients dropped from the
+          all-reduce; the learning rate times the world) beyond it;
+          ``PerceptualEncoder`` on a (world,)
+          mesh within 2e-2 (bf16) and 1e-5 (f32) of the latents' max; each
+          rank's launches exact: the trainers' probes launch
+          ``fused_conv01`` and ``lstm_binary_concrete`` as often as the run
+          without a mesh, each encode ``flash_attention`` once.
+      (d) timings: the flagship step at global batch 32 and the SD encode
+          of 16 frames on this card (world 1), and from the worker at
+          world N with the gradient all-reduce against its NVLink bound, a
+          trace of 5 steps (the card's busy share) and NCCL's transports;
+          ``flash_attention`` at a rank's share of an SD batch at world 4,
+          ``[2, 14080, 512]``.
+
+    Returns the launches of the multi-card path (this process's references
+    and timings, and each rank's of the mesh worker), for the kernels
+    line."""
+    import contextlib
+    import io
+    import tempfile
+
+    from svtpu_torch import cli
+    from svtpu_torch.config import PerceptualConfig, TrainConfig
+    from svtpu_torch.config import rbvae_variant
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.perceptual.convert import PREFIX
+    from svtpu_torch.perceptual.embed import (PerceptualEncoder,
+                                              load_frame_pm1)
+    from svtpu_torch.training.checkpoints import BestCheckpointer
+    from svtpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()       # the launched ranks share this card
+    world = torch.cuda.device_count()
+    print(f"multi card: world {world} (torch.cuda.device_count()), one "
+          f"rank a card under python3 -m torch.distributed.run [{card}]")
+    counters = kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    meta, splits, ids, states = train_video()
+    frames = video_frames(meta, states)
+    saved_tf32 = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        write_jpegs(d / "frames", frames, ids)
+        sd_dir = d / "sd_frames"
+        write_jpegs(sd_dir, np.random.default_rng(9).integers(
+            0, 256, (PERCEP_FRAMES, 720, 1280, 3), np.uint8))
+        pcfg = PerceptualConfig()
+        decoded = np.stack([load_frame_pm1(str(p), pcfg.resize_wh)
+                            for p in sorted(sd_dir.glob("*.jpg"))])
+        weights = percep_weights(decoded[:2])
+        torch.save({"state_dict": {PREFIX + k: v.cpu()
+                                   for k, v in weights["ae"].items()}},
+                   d / "sd.ckpt")
+
+        def train_argv(dtype, seed, out):
+            return (["train", "--preset", "flagship", "--video",
+                     "chinese_chess", "--frames-dir", d / "frames",
+                     "--epochs", 2, "--seed", seed, "--save-path", out]
+                    + ({"bf16": [], "f32": ["--dtype", "float32"],
+                        "f64": ["--dtype", "float64"]}[dtype]))
+
+        def embed_argv(det, out):
+            return (["embed", sd_dir, out, "--ckpt", d / "sd.ckpt"]
+                    + (["--deterministic"] if det else []))
+
+        # Across cards the batch split reorders the gradient sums, and
+        # Adam's scale-free steps carry that into the parameters where a
+        # gradient is small (PERF.md §6). At world > 1 the f32 and the f64
+        # compute runs each take three seeds, for the spread of that
+        # reordering; bf16 rounding moves the parameters by as much as a
+        # fault would, so the bf16 run is printed and held to nothing.
+        trains = [("bf16", 0), ("f32", 0)] + (
+            [("f32", 1), ("f32", 2), ("f64", 0), ("f64", 1), ("f64", 2)]
+            if world > 1 else [])
+        runs = {f"train_{dt}_s{seed}": (lambda root, dt=dt, seed=seed:
+                                        train_argv(dt, seed, root /
+                                                   f"train_{dt}_s{seed}"))
+                for dt, seed in trains}
+        runs["embed"] = lambda root: embed_argv(False, root / "embed.npy")
+        runs["embed_det"] = lambda root: embed_argv(True,
+                                                    root / "embed_det.npy")
+
+        # Every command as ``python3 -m torch.distributed.run --standalone
+        # --nproc-per-node <world> -m svtpu_torch.cli ...``, the trains with
+        # SVTPU_DETERMINISTIC=1, one launch at a time, the first beside the
+        # runs without a launcher. Launches side by side failed: on four
+        # cards nine of them did not end in 300 s (their ranks time-slice
+        # each card, and NCCL's kernels spin on peers that are not
+        # scheduled); on one card four of them ran it out of memory.
+        run_dir, ref_dir = d / f"world{world}", d / "one"
+        run_dir.mkdir()
+        ref_dir.mkdir()
+
+        def launch(kind):
+            return Torchrun(world, ["-m", "svtpu_torch.cli",
+                                    *runs[kind](run_dir)], d,
+                            **({"SVTPU_DETERMINISTIC": "1"}
+                               if kind.startswith("train") else {}))
+
+        launched = {k: launch(k) for k in list(runs)[:1]}
+        walls = {}
+        try:
+            # The commands without a launcher, in this process meanwhile,
+            # under PyTorch's TF32 defaults, as the launched ranks have them.
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                for kind, argv in runs.items():
+                    if kind.startswith("train"):
+                        os.environ["SVTPU_DETERMINISTIC"] = "1"
+                    else:
+                        os.environ.pop("SVTPU_DETERMINISTIC", None)
+                        torch.use_deterministic_algorithms(False)
+                    zero_counts(counters)
+                    buf = io.StringIO()
+                    with warnings.catch_warnings(), \
+                            contextlib.redirect_stdout(buf):
+                        warnings.simplefilter("ignore")
+                        cli.main([str(a) for a in argv(ref_dir)])
+                    torch.cuda.synchronize()
+                    got = read_counts(counters)
+                    total = add_counts(total, got)
+                    want = dict.fromkeys(counters, 0)
+                    if kind.startswith("embed"):
+                        want["flash_attention"] = chunks(PERCEP_FRAMES,
+                                                         PERCEP_BATCH)
+                    require(got == want, f"multi card: {kind} without a "
+                            f"launcher: launches {got}, expected {want}")
+            finally:
+                os.environ.pop("SVTPU_DETERMINISTIC", None)
+                torch.use_deterministic_algorithms(False)
+            torch.cuda.empty_cache()   # the next launches share this card
+            for kind in runs:
+                if kind not in launched:
+                    launched[kind] = launch(kind)
+                rc, out, err, walls[kind] = launched[kind].wait()
+                require(rc == 0, f"multi card: python3 -m "
+                        f"torch.distributed.run -m svtpu_torch.cli {kind} "
+                        f"failed (exit {rc}):\n{out[-3000:]}\n{err[-3000:]}")
+                said = ("saved 16 embeddings" if kind.startswith("embed")
+                        else "best combined:")
+                require(out.count(said) == 1, f"multi card: the "
+                        f"ranks of {kind} printed {out!r}: rank 0 alone "
+                        f"prints")
+        finally:
+            for t in launched.values():
+                t.close()
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+        train_kinds = [k for k in runs if k.startswith("train")]
+        written = sorted(p.name for p in run_dir.iterdir())
+        require(written == sorted(train_kinds + ["embed.npy", "embed_det.npy"])
+                and all(sorted(p.name for p in (run_dir / k).iterdir())
+                        == ["best.json", "best.pt", "latest.json",
+                            "latest.pt"] for k in train_kinds),
+                f"multi card: the launched runs wrote {written}")
+        print(f"multi card (a): {len(runs)} launches of python3 -m "
+              f"torch.distributed.run --standalone --nproc-per-node {world} "
+              f"-m svtpu_torch.cli, each exit 0 (every rank exited 0), one "
+              f"NCCL group of {world} rank(s) each (NCCL refuses two ranks "
+              f"on one card); seconds with start-up, one after another: "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
+              f"written: {written}, one checkpoint directory a train run and "
+              f"one .npy an embed [{card}]")
+        errs, exact, finite, worst = {}, {}, True, {}
+        for kind in train_kinds:
+            got, _ = BestCheckpointer(run_dir / kind).restore("latest")
+            ref, _ = BestCheckpointer(ref_dir / kind).restore("latest")
+            rel = rel_errors(got["model"], ref["model"])
+            name = max(rel, key=rel.get)
+            errs[kind] = rel[name]
+            worst[kind] = (f"{name}: max |diff| "
+                           f"{float((got['model'][name] - ref['model'][name]).abs().max()):.3e}"
+                           f", max |value| "
+                           f"{float(ref['model'][name].abs().max()):.3e}")
+            exact[kind] = all(torch.equal(got["model"][k], v)
+                              for k, v in ref["model"].items())
+            finite &= all(bool(torch.isfinite(v).all())
+                          for v in got["model"].values())
+        for kind in ("embed", "embed_det"):
+            got, ref = (np.load(root / f"{kind}.npy", allow_pickle=True)
+                        .item() for root in (run_dir, ref_dir))
+            require(sorted(got) == sorted(ref) and len(got) == PERCEP_FRAMES,
+                    f"multi card: {kind} keys")
+            errs[kind] = latent_error(got, ref)
+            exact[kind] = errs[kind] == 0.0
+        limits = ("0 (bit for bit)" if world == 1 else
+                  f"f32 params {F32_PARAM_LIMIT:g}, f64-compute params "
+                  f"{F64_PARAM_LIMIT:g}, latents 2e-2 (bf16); bf16 params "
+                  f"none")
+        print(f"check multi card (a) against the commands without a launcher "
+              f"at world {world}: max error / its tensor's max: "
+              + "; ".join(f"{k} {errs[k]:.3e} ({worst[k]})"
+                          for k in train_kinds)
+              + f"; embed stochastic {errs['embed']:.3e}, --deterministic "
+              f"{errs['embed_det']:.3e} (limits: {limits}); the flagship "
+              f"runs without a launcher launched flash_attention "
+              f"{total['flash_attention']} times [{card}]")
+        require(finite, "multi card: a launched run's parameters are not "
+                "finite")
+        if world == 1:
+            require(all(exact.values()), f"multi card: not bit for bit at "
+                    f"world 1: {exact}")
+        else:
+            over = {k: e for k, e in errs.items()
+                    if e > param_limit(k, latents=2e-2)}
+            require(not over, f"multi card: beyond the limits at world "
+                    f"{world}: {over}")
+
+    # (d) on this card, world 1.
+    mcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16")
+    tr = Trainer(mcfg, TrainConfig(**FLAGSHIP_TRAIN),
+                 MemoryStore(frames, ids), splits, meta.flags, device="cuda")
+    step_ms, st = flagship_step_ms(tr)
+    del tr, st
+    enc = PerceptualEncoder(weights["ae"], pcfg, batch_size=PERCEP_BATCH,
+                            seed=3)
+    embed_s = embed_seconds(enc, decoded)
+    _, N, D = PERCEP_ATTN
+    q, k, v = attention_inputs(PERCEP_BATCH // 4, N, D, torch.bfloat16, 17)
+    attn_ms, attn_sp = cuda_ms(lambda: flash_attention(q, k, v), warmup=3,
+                               iters=5)
+    flops = 4 * (PERCEP_BATCH // 4) * N * N * D
+    attn_bound = max(flops / PEAK_BF16_FLOPS,
+                     4 * q.numel() * 2 / PEAK_BYTES) * 1e3
+    frames_step = FLAGSHIP_TRAIN["batch_size"] * 2 * 5
+    print(f"time: multi card world 1 (this card): flagship train step, "
+          f"global batch {FLAGSHIP_TRAIN['batch_size']}, bf16: "
+          f"{step_ms:.3f} ms, {frames_step / step_ms * 1e3:.1f} train "
+          f"frames/s; embed (SD encode, bf16, batches of {PERCEP_BATCH}) of "
+          f"{PERCEP_FRAMES} frames at 1280x704: {embed_s:.3f} s, "
+          f"{PERCEP_FRAMES / embed_s:.2f} frames/s; flash_attention bf16 "
+          f"[{PERCEP_BATCH // 4},{N},{D}] (a rank's share of a batch of "
+          f"{PERCEP_BATCH} at world 4): {attn_ms:.3f} ms (spread "
+          f"{attn_sp:.3f}), bound {attn_bound:.3f} ms [{card}]")
+    result = {"world": world, "step_ms": {1: step_ms},
+              "embed_fps": {1: PERCEP_FRAMES / embed_s},
+              "attn_ms_b2": attn_ms}
+
+    # (b) the Python-API meshes, four cards or more.
+    if world < 4:
+        print(f"multi card (b): the (4,) and (2, 2) meshes need four cards; "
+              f"not run on this machine (world {world}), and nothing is "
+              f"claimed for them")
+    else:
+        torch.cuda.empty_cache()   # rank 0 shares this card
+        with tempfile.TemporaryDirectory() as tmp:
+            rc, out, err, wall = Torchrun(world, [
+                ROOT / "chip_smoke.py", "--multi-card-worker", tmp],
+                Path(tmp), NCCL_DEBUG="INFO").wait(timeout=600)
+            require(rc == 0, f"multi card (b): the worker failed (exit "
+                    f"{rc}):\n{out[-3000:]}\n{err[-4000:]}")
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+        def worst(key, err="max_rel_err"):
+            r = max(ranks, key=lambda r: r[key][err])[key]
+            tensor = {"max_rel_err": "worst", "grad_rel_err": "grad_worst"}
+            return f"{r[err]:.3e}" + (
+                f" ({r[tensor[err]]}"
+                + (f": max |diff| {r['worst_abs']:.3e}, max |value| "
+                   f"{r['worst_max']:.3e}" if err == "max_rel_err" else "")
+                + ")" if tensor[err] in r else "")
+
+        r0 = ranks[0]
+        print(f"check multi card (b), {world} ranks over NCCL ({wall:.1f} s "
+              f"with start-up): flagship Trainer f32, both kernels, against "
+              f"the run without a mesh, max error / its tensor's max over "
+              f"the ranks: one step's gradients after the all-reduce in f64 "
+              f"compute ({world},) {worst('trainer data', 'grad_rel_err')}, "
+              f"({world // 2}, 2) "
+              f"{worst('trainer data x model', 'grad_rel_err')} (limit "
+              f"1e-5; encoder_cnn.fc placements "
+              f"{r0['trainer data x model']['fc_placements']}); the "
+              f"parameters after 2 fused epochs in f32 ({world},) "
+              f"{worst('trainer data')}, ({world // 2}, 2) "
+              f"{worst('trainer data x model')} (limit {F32_PARAM_LIMIT:g}: "
+              f"Adam's first steps carry the f32 reordering of small "
+              f"gradients, PERF.md §6); "
+              f"per-rank launches "
+              f"{[r['trainer data']['launches'] for r in ranks]}, "
+              f"{[r['trainer data x model']['launches'] for r in ranks]}, "
+              f"the runs without a mesh "
+              f"{[r['reference_launches'] for r in ranks]}; "
+              f"PerceptualEncoder ({world},) on {PERCEP_BATCH} frames "
+              f"({PERCEP_BATCH // world} a rank): bf16 stochastic "
+              f"{worst('encoder bf16 stochastic')} (limit 2e-2), f32 "
+              f"deterministic {worst('encoder f32 deterministic')} (limit "
+              f"1e-5); encode launches per rank "
+              f"{[r['encoder bf16 stochastic']['launches'] for r in ranks]}"
+              f" [{card}]")
+        faults = {k: min(r["faults"][k] for r in ranks) for k in r0["faults"]}
+        print(f"check multi card (b): the parameter limit against two faults "
+              f"on the ({world},) mesh, f32, smallest over the ranks: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+              + f" (each must pass the f32 limit {F32_PARAM_LIMIT:g}) [{card}]")
+        require(all(v > F32_PARAM_LIMIT for v in faults.values()),
+                f"multi card (b): the f32 parameter limit {F32_PARAM_LIMIT} "
+                f"does not see a fault: {faults}")
+        require([r["device"] for r in ranks]
+                == [str(r) for r in range(world)],
+                f"multi card (b): the ranks' cards "
+                f"{[r['device'] for r in ranks]}")
+        require(r0["trainer data x model"]["fc_placements"] == "(Shard(dim=1),)",
+                "multi card (b): the (n/2, 2) mesh did not shard the fc")
+        via = sorted(set(re.findall(r" via (\S+)", out)))
+        br = r0["trace"]
+        print(f"multi card (b): NCCL's transports between the cards "
+              f"(NCCL_DEBUG=INFO): {via or 'not reported'}; trace of 5 "
+              f"flagship steps at world {world} on rank 0: window "
+              f"{br['window_ms']:.3f} ms, device busy {br['busy_ms']:.3f} ms "
+              f"= {br['busy_share']:.1%}; top ops "
+              f"{[(n, round(ms, 3)) for n, _, ms in br['top'][:5]]} [{card}]")
+        tm = r0["timing"]
+        gbps = nvlink_gbps()
+        moved = 2 * (world - 1) / world * tm["grad_bytes"]
+        bound = (f"{moved / (gbps * 1e9) * 1e3:.4f} ms ({moved / 1e6:.2f} MB "
+                 f"over {gbps:.1f} GB/s, card 0's NVLink links summed)"
+                 if gbps else "not measured (nvidia-smi lists no NVLink)")
+        print(f"time: multi card world {world}: flagship train step, global "
+              f"batch {FLAGSHIP_TRAIN['batch_size']} ({tm['local_batch']} a "
+              f"card), bf16, rank 0's CUDA events: {tm['step_ms']:.3f} ms, "
+              f"{frames_step / tm['step_ms'] * 1e3:.1f} train frames/s "
+              f"({step_ms / tm['step_ms']:.2f}x world 1's {step_ms:.3f} ms); "
+              f"its packed gradient all-reduce (all_reduce_mean_, "
+              f"{tm['grad_bytes'] / 1e6:.2f} MB f32): {tm['allreduce_ms']:.4f}"
+              f" ms (spread {tm['allreduce_spread']:.3f}), "
+              f"{tm['allreduce_ms'] / tm['step_ms']:.1%} of the step, bound "
+              f"{bound}; embed of {2 * PERCEP_BATCH} frames: "
+              f"{tm['embed_s']:.3f} s, {2 * PERCEP_BATCH / tm['embed_s']:.2f} "
+              f"frames/s (world 1: {PERCEP_FRAMES / embed_s:.2f}) [{card}]")
+        for r in ranks:
+            ref = r["reference_launches"]
+            require(ref["fused_conv01"] > 0
+                    and ref["lstm_binary_concrete"] > 0,
+                    "multi card (b): the reference probes ran no kernel")
+            for name in ("data", "data x model"):
+                t = r[f"trainer {name}"]
+                require(t["parallel"] and t["launches"] == ref,
+                        f"multi card (b): rank {r['rank']} trainer {name}: "
+                        f"launches {t['launches']}, expected {ref}")
+                require(t["max_rel_err"] <= F32_PARAM_LIMIT, f"multi card "
+                        f"(b): rank {r['rank']} trainer {name}: parameters "
+                        f"{t['max_rel_err']} ({t['worst']})")
+                require(t["grad_rel_err"] <= 1e-5, f"multi card (b): rank "
+                        f"{r['rank']} trainer {name}: gradients "
+                        f"{t['grad_rel_err']} ({t['grad_worst']}); above "
+                        f"1e-6: {t['grad_errs']}")
+                total = add_counts(total, t["launches"])
+            for name, limit in (("bf16 stochastic", 2e-2),
+                                ("f32 deterministic", 1e-5)):
+                e = r[f"encoder {name}"]
+                want = dict.fromkeys(counters, 0)
+                want["flash_attention"] = 1
+                require(e["launches"] == want, f"multi card (b): rank "
+                        f"{r['rank']} encoder {name}: launches "
+                        f"{e['launches']}")
+                require(e["max_rel_err"] <= limit, f"multi card (b): rank "
+                        f"{r['rank']} encoder {name}: {e['max_rel_err']}")
+                total = add_counts(total, e["launches"])
+        result["step_ms"][world] = tm["step_ms"]
+        result["embed_fps"][world] = 2 * PERCEP_BATCH / tm["embed_s"]
+    result["launches"] = total
+    print(f"multi card: all checks passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {total} [{card}]")
+    return result
 
 
 def attention_library(q, k, v):
@@ -2974,11 +3719,12 @@ def instance(symbol: str) -> str:
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
                        percep: dict, simple: dict, wide: dict,
                        train: dict, evaluation: dict, cli: dict,
-                       video: dict, rest: dict) -> list:
+                       video: dict, rest: dict, multi: dict) -> list:
     """Each kernel's row of the kernels line: its time, its plain
     version's, a library call's where one computes the same function, its
     bound, and its launches on every path of this run (the evaluation,
-    command-line, video and rest phases' included)."""
+    command-line, video, rest and multi-card phases' included: the last
+    counts every launched rank's)."""
     from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused,
                                                binary_concrete_fused_plain)
     from svtpu_torch.ops.conv_trunk_cuda import (fused_conv01,
@@ -3012,7 +3758,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
         launches=sum(d["launches"]["fused_conv01"]
-                     for d in (main, wide, train, cli, video, rest))
+                     for d in (main, wide, train, cli, video, rest, multi))
         + eval_launches("fused_conv01"),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
@@ -3030,7 +3776,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"{eval_launches('fused_conv01')}, cli "
           f"{cli['launches']['fused_conv01']}, video "
           f"{video['launches']['fused_conv01']}, rest "
-          f"{rest['launches']['fused_conv01']}) [{card}]")
+          f"{rest['launches']['fused_conv01']}, multi card "
+          f"{multi['launches']['fused_conv01']}) [{card}]")
 
     g = torch.Generator().manual_seed(3)
     logits = torch.randn(BATCH, 1, LATENT, generator=g).cuda() \
@@ -3050,7 +3797,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     launches = {k: d["launches"]["binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("simple", simple),
                  ("wide", wide), ("cli", cli), ("video", video),
-                 ("rest", rest))}
+                 ("rest", rest), ("multi card", multi))}
     launches["evaluation"] = eval_launches("binary_concrete")
     rows.append(dict(
         name="binary_concrete", route="cuda",
@@ -3098,7 +3845,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
              if "lstm_binary_concrete_kernel" in fn}
     launches = {k: d["launches"]["lstm_binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("train", train),
-                 ("cli", cli), ("video", video), ("rest", rest))}
+                 ("cli", cli), ("video", video), ("rest", rest),
+                 ("multi card", multi))}
     launches["percep train"] = \
         train["percep_launches"]["lstm_binary_concrete"]
     launches["evaluation"] = eval_launches("lstm_binary_concrete")
@@ -3150,10 +3898,12 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         + eval_launches("flash_attention")
         + cli["launches"]["flash_attention"]
         + video["launches"]["flash_attention"]
-        + rest["launches"]["flash_attention"],
+        + rest["launches"]["flash_attention"]
+        + multi["launches"]["flash_attention"],
         max_abs_err=errs["flash_attention"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
-        bound_by=max(bound, key=bound.get), library_ms=lib_ms))
+        bound_by=max(bound, key=bound.get), library_ms=lib_ms,
+        ms_2x14080x512=multi["attn_ms_b2"]))
     print(f"time: flash_attention bf16 [{B},{N},{D}]: kernel {ms:.3f} ms "
           f"(spread {sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s, "
           f"{max(bound.values()) / ms:.1%} of bound), plain "
@@ -3166,7 +3916,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"{eval_launches('flash_attention')}, cli "
           f"{cli['launches']['flash_attention']}, video "
           f"{video['launches']['flash_attention']}, rest "
-          f"{rest['launches']['flash_attention']} [{card}]")
+          f"{rest['launches']['flash_attention']}, multi card "
+          f"{multi['launches']['flash_attention']} [{card}]")
     return rows
 
 
@@ -3195,8 +3946,10 @@ def main() -> None:
     cli = phase_cli_path(card)
     video = phase_video_path(card)
     rest = phase_rest_path(card)
+    multi = phase_multi_card(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
-                              wide, train, evaluation, cli, video, rest)
+                              wide, train, evaluation, cli, video, rest,
+                              multi)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "
@@ -3212,4 +3965,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multi-card-worker"]:
+        multi_card_worker(sys.argv[2])
+    else:
+        main()

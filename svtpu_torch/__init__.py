@@ -7,7 +7,9 @@ built with ``nvcc`` at first use and bound through ``ctypes``
 ``svtpu`` is the reference it is tested against (``tests/test_torch_*.py``).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``; with no card and no explicit device they raise.
+``device="cpu"``; with no card and no explicit device they raise. Under
+a launcher (``python -m torch.distributed.run``) each process is one rank
+on the card of its ``LOCAL_RANK`` (``parallel.distributed.initialize``).
 
 Layer map (``svtpu``'s, ported):
   L0  svtpu_torch.data          — video → frames (cv2, native C++), stores,
@@ -26,20 +28,39 @@ Layer map (``svtpu``'s, ported):
 """
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
+
+
+class NoCardError(RuntimeError):
+    """CUDA was asked for and the process sees no card."""
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
 
-    Raises when CUDA is asked for (explicitly or by default) and there is
-    no card, so nothing falls back to the CPU unasked.
+    Raises ``NoCardError`` when CUDA is asked for (explicitly or by
+    default) and there is no card, so nothing falls back to the CPU
+    unasked. Under an initialised NCCL process group a bare ``"cuda"`` is
+    this rank's card, ``cuda:<LOCAL_RANK>`` (modulo the cards the process
+    sees; the current card where ``LOCAL_RANK`` is unset), so that no
+    tensor lands on card 0 by accident.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise NoCardError(
             "svtpu_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU")
+    if (dev.index is None and dist.is_available() and dist.is_initialized()
+            and dist.get_backend() == "nccl"):
+        local = os.environ.get("LOCAL_RANK")
+        dev = torch.device("cuda", int(local) % torch.cuda.device_count()
+                           if local is not None
+                           else torch.cuda.current_device())
     return dev
 
 

@@ -26,20 +26,34 @@ written (``eval-projections`` then writes each projection's points as a
 CSV). ``eval-projections`` and ``eval-probe`` need sklearn for the fit
 itself. matplotlib, sklearn and PIL are imported only where they are used.
 
-``download-weights`` needs the network and is not ported.
+Several cards: ``python3 -m torch.distributed.run --standalone
+--nproc-per-node N -m svtpu_torch.cli <command> ...`` starts one process a
+card, as ``svtpu`` spans every chip of its host with no flag. ``train``,
+``sweep``, ``embed``, ``interpolate`` and ``eval-consistency --sd-ckpt``
+(whose ``svtpu`` counterparts build a mesh) run on every rank, data
+parallel, and rank 0 alone writes their files and prints; every other
+command runs on rank 0 alone, with no process group, and the other ranks
+return at once. Without a launcher a command is one process on one card.
+
+``SVTPU_DETERMINISTIC=1`` in the environment makes a command use PyTorch's
+deterministic algorithms, so that two runs of it give the same bits.
 
 Run: ``python -m svtpu_torch.cli <command> --help``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
-from svtpu_torch import resolve_device
+from svtpu_torch import NoCardError, resolve_device
+from svtpu_torch.parallel import distributed
 
 
 def _meta_by_name(args, name):
@@ -179,8 +193,10 @@ def cmd_convert(args):
 
 
 def cmd_download_weights(args):
-    raise SystemExit("download-weights needs the network and is not ported "
-                     "to svtpu_torch; fetch sd-v1-4.ckpt yourself")
+    from svtpu_torch.data.frames import download_sd_weights
+
+    path = download_sd_weights(args.out_dir)
+    print(path)
 
 
 def cmd_embed(args):
@@ -314,8 +330,9 @@ def cmd_train(args):
             print(json.dumps({"epoch": e, **hist["train_losses"][e]}))
         if args.save_path:
             from svtpu_torch.training.checkpoints import save_params_npz
-            save_params_npz(hist["final_state"].model.state_dict(), mcfg,
-                            str(args.save_path) + "_params.npz")
+            distributed.main_then_barrier(
+                save_params_npz, hist["final_state"].model.state_dict(), mcfg,
+                str(args.save_path) + "_params.npz")
             print(f"saved params to {args.save_path}_params.npz")
         return
     hist = trainer.train(num_epochs=args.epochs, save_path=args.save_path,
@@ -324,7 +341,7 @@ def cmd_train(args):
           f"at epoch {hist['best_epoch']}")
     if "trap_guard" in hist:
         print(json.dumps({"trap_guard": hist["trap_guard"]}))
-    if args.history_out:
+    if args.history_out and distributed.is_main():
         # Full per-epoch metric trajectories (JSONL: one epoch per line,
         # train + val merged), then a meta row without an "epoch" key.
         p = Path(args.history_out)
@@ -559,6 +576,8 @@ def cmd_eval_consistency(args):
     results = []
     for name, ns in _model_namespaces(args):
         results.extend(_consistency_for_model(name, ns, meta))
+    if not distributed.is_main():     # --sd-ckpt under a launcher
+        return
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
     write_csv(results, out / "consistency.csv")
@@ -743,6 +762,30 @@ def cmd_interpolate(args):
                                  if args.ckpt == "random" else ""))
 
 
+# The commands whose svtpu counterpart builds a mesh over every chip of
+# the host (its Trainer's or PerceptualEncoder's).
+EVERY_RANK = ("train", "sweep", "embed", "interpolate")
+
+
+def _on_every_rank(args) -> bool:
+    """Whether the command runs on every rank under a launcher (data
+    parallel, rank 0 writing) or on rank 0 alone: ``EVERY_RANK``, and
+    ``eval-consistency`` where ``--sd-ckpt`` gives it the SD re-encode."""
+    return args.cmd in EVERY_RANK or (
+        args.cmd == "eval-consistency" and bool(args.sd_ckpt))
+
+
+@contextlib.contextmanager
+def _quiet_unless_main():
+    """Standard output discarded on every rank but the main one: rank 0
+    alone prints a command's results."""
+    if distributed.is_main():
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="svtpu_torch", description=__doc__,
                                 formatter_class=argparse.
@@ -764,9 +807,7 @@ def main(argv=None):
     sp.add_argument("--fourcc", default="MJPG")
     sp.set_defaults(fn=cmd_convert)
 
-    sp = sub.add_parser("download-weights",
-                        help="fetch sd-v1-4.ckpt (needs the network; not "
-                             "ported)")
+    sp = sub.add_parser("download-weights", help="fetch sd-v1-4.ckpt")
     sp.add_argument("out_dir")
     sp.set_defaults(fn=cmd_download_weights)
 
@@ -1022,15 +1063,39 @@ def main(argv=None):
         train_sp.set_defaults(**TRAIN_PRESETS[preset])
 
     args = p.parse_args(argv)
-    if "device" in vars(args):
-        # The card unless --device names another; no card exits here,
-        # before any file is read.
-        try:
-            args.device = resolve_device(args.device)
-        except RuntimeError as e:
-            raise SystemExit(f"{e} (on the command line: --device cpu)")
-    return args.fn(args)
+    if os.environ.get("SVTPU_DETERMINISTIC") == "1":
+        # Reproducible runs: PyTorch's deterministic algorithms (cuBLAS
+        # reads its workspace setting at its first call).
+        import torch
 
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    has_device = "device" in vars(args)
+    every_rank = _on_every_rank(args)
+    own_group = every_rank and not dist.is_initialized()
+    # Under a launcher a command that runs on every rank starts the process
+    # group first: NCCL on this rank's card, gloo for --device cpu. Without
+    # a launcher it is a no-op. No card exits here, before any file is read.
+    try:
+        if every_rank:
+            distributed.initialize(device=args.device)
+        if has_device:
+            args.device = resolve_device(args.device)
+    except NoCardError as e:
+        raise SystemExit(f"{e} (on the command line: --device cpu)")
+    if not every_rank:
+        # A command of one card runs on rank 0 alone, with no group; the
+        # other ranks return at once (the launcher waits for every rank,
+        # and fails the job if one fails).
+        return args.fn(args) if distributed.launched_rank() == 0 else None
+    try:
+        with _quiet_unless_main():
+            out = args.fn(args)
+        distributed.barrier()
+        return out
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
 
 if __name__ == "__main__":
     sys.exit(main())

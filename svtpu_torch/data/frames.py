@@ -10,8 +10,8 @@ Backends that iterate a video's RGB frames as ``[H, W, 3]`` uint8:
                  ``ImportError``
 
 Frames are written as ``%010d.jpg`` (``FRAME_PATTERN``), the naming every
-frame directory reader keys on. ``svtpu``'s ``download_sd_weights`` needs
-the network and is not ported.
+frame directory reader keys on. ``download_sd_weights`` fetches the SD
+checkpoint from the Hugging Face hub where ``huggingface_hub`` imports.
 """
 from __future__ import annotations
 
@@ -144,3 +144,21 @@ def convert_video(src: str | Path, dst: str | Path,
     finally:
         cap.release()
         writer.release()
+
+
+def download_sd_weights(out_dir: str | Path,
+                        repo_id: str = "CompVis/stable-diffusion-v-1-4-original",
+                        filename: str = "sd-v1-4.ckpt") -> str:
+    """HF-hub download of the SD checkpoint (reference
+    ``scripts/download_weights.py:1-3``) into ``out_dir``; returns its path.
+    Raises ``ImportError`` naming the manual route where
+    ``huggingface_hub`` is not installed."""
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise ImportError(
+            "huggingface_hub is not installed; download sd-v1-4.ckpt "
+            "manually and pass its path to "
+            "svtpu_torch.perceptual.convert.load_torch_checkpoint") from e
+    return hf_hub_download(repo_id=repo_id, filename=filename,
+                           local_dir=str(out_dir))

@@ -125,7 +125,10 @@ class ConvEncoder(nn.Module):
         """``x [N, H, W, C]`` → logits ``[N, L]``: ``features``, then fc."""
         h = self.features(x, trunk, dropout_seed, rows)
         # Flatten in torch's channel-major order, which the fc weight uses.
-        return self.fc(h.reshape(h.shape[0], -1), self.cfg.torch_dtype)
+        # The dtype goes by keyword: a tensor-parallel style's input hook
+        # passes the first positional argument alone.
+        return self.fc(h.reshape(h.shape[0], -1),
+                       dtype=self.cfg.torch_dtype)
 
     def features(self, x: torch.Tensor, trunk: str = "torch",
                  dropout_seed: Optional[int] = None,
@@ -211,7 +214,7 @@ class ConvDecoder(nn.Module):
         dt = c.torch_dtype
         eh, ew = c.encoded_hw
         gen = _dropout_generator(c, dropout_seed, 1, z.device, rows)
-        h = self.fc(z, dt).reshape(z.shape[0], -1, eh, ew)
+        h = self.fc(z, dtype=dt).reshape(z.shape[0], -1, eh, ew)
         deconvs = [m for m in self.deconv
                    if isinstance(m, ConvTranspose2dTorch)]
         for i, m in enumerate(deconvs):

@@ -107,6 +107,23 @@ def load(name: str, signatures=None) -> ctypes.CDLL:
         return lib
 
 
+def plain(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a plain tensor whose ``data_ptr`` holds its values, for a
+    launcher, which reads memory by address past PyTorch's dispatch. A
+    tensor subclass is materialised by an op that is not a view: the
+    local output of a tensor-parallel layer is an ``AsyncCollectiveTensor``
+    whose collective may not have run, and whose wrapper has no storage of
+    its own (its address made the LSTM kernel read out of bounds on a
+    (2, 2) mesh). Raises for a subclass that stays one (a ``DTensor``)."""
+    if type(t) is torch.Tensor:
+        return t
+    out = t.clone()
+    if type(out) is not torch.Tensor:
+        raise TypeError(f"the kernels take plain tensors, got "
+                        f"{type(t).__name__}")
+    return out
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launcher reported a CUDA error."""
     if err != 0:

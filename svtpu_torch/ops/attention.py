@@ -96,8 +96,9 @@ def kernel_for(dtype: torch.dtype, D: int) -> str:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary (the kernel's vector loads)."""
-    t = t.contiguous()
+    """Plain, contiguous, on a 16-byte boundary (the kernel's vector
+    loads)."""
+    t = _build.plain(t).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

@@ -132,7 +132,7 @@ def binary_concrete_fused(logits: torch.Tensor, seed,
     if logits.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {logits.dtype}")
     seed_ptr, seed_val = seed_args(seed, logits.device)
-    x = logits.contiguous()
+    x = _build.plain(logits).contiguous()
     out = torch.empty_like(x)
     fn = _build.load("binary_concrete", _SIGNATURES).svt_binary_concrete
     with torch.cuda.device(x.device):

@@ -218,7 +218,10 @@ class ConvTranspose2dTorch(nn.ConvTranspose2d):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` whose forward runs in a given compute dtype."""
+    """``nn.Linear`` whose forward runs in a given compute dtype. Pass
+    ``dtype`` by keyword: under ``parallelize_rbvae`` the tensor-parallel
+    style's input hook keeps the first positional argument only, and a
+    positional dtype fell back to float32."""
 
     def forward(self, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
         return dense(x, self.weight, self.bias, dtype)

@@ -126,6 +126,7 @@ def fused_conv01(x, w0, b0, w1, b1) -> torch.Tensor:
         return fused_conv01_plain(x, w0, b0, w1, b1)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    x = _build.plain(x)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC")
     if x.data_ptr() % 16:

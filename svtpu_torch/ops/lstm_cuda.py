@@ -125,7 +125,7 @@ def lstm_binary_concrete(lstm, x: torch.Tensor, seed, temperature=0.5,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     seed_ptr, seed_val = seed_args(seed, x.device)
-    xk = x.to(lstm.dtype).contiguous()
+    xk = _build.plain(x.to(lstm.dtype)).contiguous()
     B, T, H = xk.shape
     L = lstm.num_layers
     codes = torch.empty_like(xk)

@@ -12,8 +12,10 @@ the ranks' rows (``local_batch_to_global``).
 """
 from __future__ import annotations
 
+import hashlib
+import json
 import os
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
@@ -25,27 +27,32 @@ from svtpu_torch import resolve_device
 # What a launcher (torchrun, or a caller following its convention) sets.
 _LAUNCHER_ENV = ("WORLD_SIZE", "MASTER_ADDR", "TORCHELASTIC_RUN_ID")
 
+T = TypeVar("T")
+
 
 def initialize(init_method: Optional[str] = None,
                world_size: Optional[int] = None,
                rank: Optional[int] = None,
-               backend: Optional[str] = None) -> bool:
+               backend: Optional[str] = None, device=None) -> bool:
     """Start the process group when there is one to start.
 
     A no-op returning ``False`` in a single process with no launcher
     environment, so it is safe at the top of every entry point. Otherwise
     it calls ``torch.distributed.init_process_group`` and returns True.
-    ``backend``: NCCL by default, on the card of ``LOCAL_RANK`` (raises
-    without a card, and does not fall back to gloo when NCCL fails);
-    ``"gloo"`` only where the caller asks for the CPU. Already initialised:
-    returns whether the world has more than one rank.
+    ``backend``: by default from ``device``, the device the caller names
+    for its work: gloo for ``"cpu"``, NCCL otherwise, on the card of
+    ``LOCAL_RANK`` (raises without a card, and does not fall back to gloo
+    when NCCL fails). Already initialised: returns whether the world has
+    more than one rank.
     """
     if dist.is_initialized():
         return dist.get_world_size() > 1
     if init_method is None and not any(os.environ.get(k)
                                        for k in _LAUNCHER_ENV):
         return False
-    backend = backend or "nccl"
+    if backend is None:
+        cpu = device is not None and torch.device(device).type == "cpu"
+        backend = "gloo" if cpu else "nccl"
     if backend == "nccl":
         resolve_device("cuda")
         local = int(os.environ.get("LOCAL_RANK", rank or 0))
@@ -101,3 +108,57 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
 def is_main() -> bool:
     """Rank 0, or no process group: the process that writes files."""
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def launched_rank() -> int:
+    """This process's rank: the process group's, else the ``RANK`` a
+    launcher set, else 0."""
+    if dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))
+
+
+def barrier() -> None:
+    """Wait until every rank of the world is here; a no-op without a
+    process group."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def main_then_barrier(fn: Callable[..., T], *args, **kwargs
+                      ) -> Optional[T]:
+    """``fn(*args, **kwargs)`` on the main process alone (a file write),
+    then ``barrier()``: the other ranks wait for it, so that a read on any
+    rank afterwards finds what it wrote. Returns ``fn``'s value on the
+    main process and None on the others."""
+    out = fn(*args, **kwargs) if is_main() else None
+    barrier()
+    return out
+
+
+def same_on_every_rank(obj, what: str) -> None:
+    """Raise ``RuntimeError`` where the ranks hold different ``obj``s
+    (compared by a hash of its JSON); a no-op without a process group."""
+    if not dist.is_initialized():
+        return
+    digest = hashlib.sha256(json.dumps(obj, sort_keys=True, default=str)
+                            .encode()).hexdigest()
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, digest)
+    if len(set(digests)) > 1:
+        raise RuntimeError(f"{what} differs across the ranks (digests "
+                           f"{digests})")
+
+
+def share(obj):
+    """Rank 0's ``obj`` on every rank (``broadcast_object_list``); ``obj``
+    itself without a process group."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

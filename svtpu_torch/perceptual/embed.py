@@ -27,6 +27,7 @@ from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import PerceptualConfig
 from svtpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
 from svtpu_torch.ops.draws import GlobalRows, ShardedGenerator
+from svtpu_torch.parallel import distributed
 from svtpu_torch.parallel.distributed import local_batch_to_global
 from svtpu_torch.parallel.mesh import make_mesh, pad_to_multiple
 
@@ -153,7 +154,9 @@ def precompute_embeddings(frames_dir: str | Path, out_path: str | Path,
                           ) -> Dict[str, np.ndarray]:
     """Frames dir → the reference's ``<video>_perceps.npy`` dict
     ``{file name: float32 [1, 4, h, w]}``, written with ``np.save`` when
-    ``out_path`` is given.
+    ``out_path`` is given. Under a process group every rank encodes its
+    rows of each batch and returns the whole dict; rank 0 alone writes the
+    file, and the other ranks wait for it.
 
     Frames go ``max(4 * batch_size, 32)`` at a time; a pool of ``workers``
     threads decodes chunk k+1 (``load_frame_pm1``) while the card encodes
@@ -187,6 +190,6 @@ def precompute_embeddings(frames_dir: str | Path, out_path: str | Path,
     latents = np.concatenate(latents_parts)    # [N, h, w, 4]
     emb = {p.name: np.transpose(z, (2, 0, 1))[None].astype(np.float32)
            for p, z in zip(paths, latents)}    # [1, 4, h, w] like reference
-    if out_path:
-        np.save(out_path, emb)                 # np.load(...).item() readable
+    if out_path:                               # np.load(...).item() reads it
+        distributed.main_then_barrier(np.save, out_path, emb)
     return emb

@@ -13,6 +13,7 @@ from typing import Literal
 
 import numpy as np
 
+from svtpu_torch.parallel import distributed
 from svtpu_torch.perceptual.embed import PerceptualEncoder, load_frame_pm1
 
 
@@ -42,7 +43,8 @@ def interpolate_images(encoder: PerceptualEncoder,
                        out_path: str | Path | None = None) -> np.ndarray:
     """Two frames (image paths, or uint8 ``[H, W, 3]`` arrays) →
     ``[steps, H, W, 3]`` decoded pixels in [0, 1]; with ``out_path``, also a
-    strip of the steps as an image (needs matplotlib)."""
+    strip of the steps as an image (needs matplotlib), written by rank 0
+    alone under a process group while the other ranks wait."""
     def load(x):
         if isinstance(x, (str, Path)):
             return load_frame_pm1(str(x), encoder.cfg.resize_wh)
@@ -54,16 +56,22 @@ def interpolate_images(encoder: PerceptualEncoder,
     zs = np.stack([interp(za, zb, float(t)) for t in ts])
     decoded = encoder.decode_latents(zs)
     if out_path is not None:
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        fig, axes = plt.subplots(1, steps, figsize=(2 * steps, 2.4))
-        for ax, img, t in zip(np.atleast_1d(axes), decoded, ts):
-            ax.imshow(np.clip(img, 0, 1))
-            ax.set_title(f"t={t:.2f}", fontsize=8)
-            ax.axis("off")
-        fig.tight_layout()
-        fig.savefig(out_path, dpi=120)
-        plt.close(fig)
+        distributed.main_then_barrier(_save_strip, decoded, ts, out_path)
     return decoded
+
+
+def _save_strip(decoded: np.ndarray, ts: np.ndarray,
+                out_path: str | Path) -> None:
+    """The decoded steps side by side, each titled with its t."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(1, len(ts), figsize=(2 * len(ts), 2.4))
+    for ax, img, t in zip(np.atleast_1d(axes), decoded, ts):
+        ax.imshow(np.clip(img, 0, 1))
+        ax.set_title(f"t={t:.2f}", fontsize=8)
+        ax.axis("off")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)

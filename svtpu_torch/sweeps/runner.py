@@ -9,6 +9,12 @@ port's ``best.pt`` / ``best.json``) beside ``<run>_config.json``, so that
 ``eval-tradeoff --sweep-dir`` reads the directory. A local sweep resumes:
 a trial whose ``local_<t>_config.json`` records the config the seed
 re-samples is not trained again.
+
+Under a process group every rank trains each trial's one model (the
+``Trainer``'s default mesh spans the world) on the same config: a local
+sweep's ranks sample it from the same seed, which an all-gather of its
+hash checks; a W&B sweep's agent and reports live on rank 0, which hands
+each config to the other ranks. Rank 0 alone writes the sweep's files.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 
 from svtpu_torch.config import TrainConfig, VideoMeta, rbvae_variant
 from svtpu_torch.data.segments import split_segments
+from svtpu_torch.parallel import distributed
 from svtpu_torch.sweeps.spaces import METRIC, SPACES, sample, to_wandb_config
 from svtpu_torch.training.trainer import Trainer
 
@@ -97,7 +104,8 @@ def train_with_config(config: Dict, variant: str, store,
         "best_separation": float(max(
             (v.get("state_separation", 0.0) for v in vals), default=0.0))}
     if save_path:
-        (Path(save_path).parent / f"{run_name}_config.json").write_text(
+        distributed.main_then_barrier(
+            (Path(save_path).parent / f"{run_name}_config.json").write_text,
             json.dumps({"config": config, **summary}, indent=2))
     return {**summary, "history": hist, "save_path": save_path}
 
@@ -134,28 +142,14 @@ def run_sweep(variant: str, store, video_meta: VideoMeta,
         space["num_epochs"] = ("const", int(epochs_override))
     metric = METRIC[variant]
 
-    if use_wandb:
+    if use_wandb and distributed.is_main():
         try:
             import wandb
         except ImportError:
             use_wandb = False
-    if use_wandb:
-        sweep_id = wandb.sweep(to_wandb_config(space, metric),
-                               project=f"svtpu_{variant}_sweep")
-
-        def agent_fn():
-            run = wandb.init()
-            res = train_with_config(dict(run.config), variant, store,
-                                    video_meta, save_dir,
-                                    run_name=run.name or run.id,
-                                    device=device)
-            wandb.log({metric[0]: res[metric[0]]})
-            if res["save_path"]:
-                wandb.save(res["save_path"] + "*")
-            run.finish()
-
-        wandb.agent(sweep_id, function=agent_fn, count=count)
-        return {"sweep_id": sweep_id}
+    if distributed.share(use_wandb):
+        return _wandb_sweep(space, metric, variant, store, video_meta,
+                            count, save_dir, device)
 
     rng = np.random.default_rng(seed)
     best, best_cfg, trials = None, None, []
@@ -163,8 +157,10 @@ def run_sweep(variant: str, store, video_meta: VideoMeta,
     for t in range(count):
         cfg = sample(space, rng)     # the rng always advances, so trial t's
         #                              config is seed-stable
+        distributed.same_on_every_rank(cfg, f"trial {t}'s sampled config")
         label = f"[trial {t}/{count}]"
         done = Path(save_dir) / f"local_{t}_config.json" if save_dir else None
+        distributed.barrier()        # every rank reads what rank 0 wrote
         score = _resumed_score(done, cfg, metric[0], label)
         if score is not None:
             print(f"{label} resumed: {metric[0]}={score:.4f}", flush=True)
@@ -187,7 +183,44 @@ def run_sweep(variant: str, store, video_meta: VideoMeta,
     result = {"best": best, "best_config": best_cfg, "trials": trials,
               "metric": metric[0]}
     if save_dir:
-        Path(save_dir).mkdir(parents=True, exist_ok=True)
-        (Path(save_dir) / "sweep_results.json").write_text(
-            json.dumps(result, indent=2, default=str))
+        def write():
+            Path(save_dir).mkdir(parents=True, exist_ok=True)
+            (Path(save_dir) / "sweep_results.json").write_text(
+                json.dumps(result, indent=2, default=str))
+
+        distributed.main_then_barrier(write)
     return result
+
+
+def _wandb_sweep(space: Dict, metric, variant: str, store,
+                 video_meta: VideoMeta, count: int,
+                 save_dir: Optional[str], device) -> Dict:
+    """The W&B Bayesian sweep and its agent (method and metric as the
+    reference's) on rank 0, which reports; under a process group it hands
+    each run's config and name to the other ranks, which train the same
+    trial with it, and ``None`` when the agent is done."""
+    if not distributed.is_main():
+        while (job := distributed.share(None)) is not None:
+            train_with_config(job[0], variant, store, video_meta, save_dir,
+                              run_name=job[1], device=device)
+        return {"sweep_id": distributed.share(None)}
+
+    import wandb
+
+    sweep_id = wandb.sweep(to_wandb_config(space, metric),
+                           project=f"svtpu_{variant}_sweep")
+
+    def agent_fn():
+        run = wandb.init()
+        config, name = distributed.share((dict(run.config),
+                                          run.name or run.id))
+        res = train_with_config(config, variant, store, video_meta, save_dir,
+                                run_name=name, device=device)
+        wandb.log({metric[0]: res[metric[0]]})
+        if res["save_path"]:
+            wandb.save(res["save_path"] + "*")
+        run.finish()
+
+    wandb.agent(sweep_id, function=agent_fn, count=count)
+    distributed.share(None)
+    return {"sweep_id": distributed.share(sweep_id)}

@@ -4,7 +4,8 @@
     python tests/_torch_dist_worker.py tcp://127.0.0.1:PORT WORLD RANK DIR
 
 With 2 ranks: a data-parallel step and a (1, 2) data x model step against
-one process on the same global batch, a (1, 2) run's checkpoint (whole
+one process on the same global batch, both fc layers of a (1, 2) model
+in its compute dtype, a (1, 2) run's checkpoint (whole
 tensors, into ``DIR``) loaded by a one-device model and resumed on the
 mesh, ``local_batch_to_global`` and a data-parallel
 ``PerceptualEncoder``. With 4 ranks: a fused epoch on a
@@ -33,6 +34,7 @@ from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.parallel.distributed import (initialize,
                                               local_batch_to_global)
 from svtpu_torch.parallel.mesh import Mesh, make_mesh
+from svtpu_torch.parallel.sharding import parallelize_rbvae
 from svtpu_torch.training.trainer import Trainer
 
 META = VideoMeta("p", flags=(16, 32), last_frame=47, grey_out=0)
@@ -116,6 +118,25 @@ def check_tp_step(rank, world):
                              dtype="float64"))
     _, ref = step(trainer(single(rank), dtype="float64"))
     close(params, ref, 1e-5, "(1, n) step")
+
+
+def check_tp_compute_dtype(world):
+    """Under a (1, n) mesh both fc layers compute in the model's compute
+    dtype: the dtype goes by keyword, which the tensor-parallel style's
+    input hook passes on (a positional one was dropped, and the fc ran in
+    float32)."""
+    model = Seq2SeqBinaryVAE(dataclasses.replace(MCFG,
+                                                 compute_dtype="float64"),
+                             device="cpu")
+    parallelize_rbvae(model, make_mesh((1, world), ("data", "model")))
+    seen = []
+    for fc in (model.encoder_cnn.fc, model.decoder_cnn.fc):
+        assert isinstance(fc.weight, DTensor)
+        fc.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    x = torch.rand(2, 32, 32, 3, dtype=torch.float64)
+    logits = model.encoder_cnn(x)
+    model.decoder_cnn(logits)
+    assert seen == [torch.float64, torch.float64], seen
 
 
 def check_tp_checkpoint(world, tmp):
@@ -206,6 +227,7 @@ def main(addr: str, world: int, rank: int, tmp: str) -> None:
     if world == 2:
         check_dp_step(rank, world)
         check_tp_step(rank, world)
+        check_tp_compute_dtype(world)
         check_tp_checkpoint(world, tmp)
         check_batch_to_global(rank, world)
         check_embed(rank, world)

@@ -2,14 +2,16 @@
 counterparts of ``tests/test_cli_eval.py`` other than
 ``test_train_multi_video`` (in ``tests/test_torch_multi.py``), ``encode``
 and ``embed`` against ``svtpu.cli`` on shared weights, and the guards: no
-card and no ``--device`` exits, eval commands without matplotlib, and an
-import that pulls in neither matplotlib nor sklearn nor PIL. ``sweep`` is
-in ``tests/test_torch_sweeps.py``. The video commands are in
+card and no ``--device`` exits, eval commands without matplotlib, an
+import that pulls in neither matplotlib nor sklearn nor PIL, and
+``download-weights`` against a blocked and a fake ``huggingface_hub`` (no
+test reaches the network). ``sweep`` is in ``tests/test_torch_sweeps.py``. The video commands are in
 ``tests/test_torch_video.py``."""
 import functools
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -413,9 +415,46 @@ def test_no_card_and_no_device_exits(cmd, video_dir, tmp_path, monkeypatch):
         cli.main(MODEL_COMMANDS[cmd](video_dir, tmp_path / "missing"))
 
 
-def test_download_weights_is_not_ported():
-    with pytest.raises(SystemExit, match="needs the network"):
+def test_download_weights_without_huggingface_hub(monkeypatch):
+    """With ``huggingface_hub`` not importable both packages raise
+    ``ImportError`` naming the manual route, the port's its own loader."""
+    from svtpu.data.frames import download_sd_weights as jax_download
+
+    from svtpu_torch.data.frames import download_sd_weights
+
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    with pytest.raises(ImportError, match="svtpu.perceptual.convert"):
+        jax_download("out")
+    with pytest.raises(ImportError, match="svtpu_torch.perceptual.convert"
+                       r"\.load_torch_checkpoint"):
+        download_sd_weights("out")
+    with pytest.raises(ImportError, match="huggingface_hub is not"):
         cli.main(["download-weights", "out"])
+
+
+def test_download_weights_asks_the_hub_as_svtpu(monkeypatch, tmp_path,
+                                                 capsys):
+    """Against a fake ``huggingface_hub`` (nothing is fetched), both
+    packages ask for the same ``repo_id``, ``filename`` and ``local_dir``,
+    and ``download-weights`` prints the returned path, as ``svtpu``'s."""
+    from svtpu.data.frames import download_sd_weights as jax_download
+
+    from svtpu_torch.data.frames import download_sd_weights
+
+    calls = []
+    hub = types.ModuleType("huggingface_hub")
+    hub.hf_hub_download = lambda **kw: calls.append(kw) or str(
+        Path(kw["local_dir"]) / kw["filename"])
+    monkeypatch.setitem(sys.modules, "huggingface_hub", hub)
+    assert download_sd_weights(tmp_path) == jax_download(tmp_path)
+    assert calls[0] == calls[1] == {
+        "repo_id": "CompVis/stable-diffusion-v-1-4-original",
+        "filename": "sd-v1-4.ckpt", "local_dir": str(tmp_path)}
+    jcli.main(["download-weights", str(tmp_path)])
+    want = capsys.readouterr().out
+    cli.main(["download-weights", str(tmp_path)])
+    assert capsys.readouterr().out == want == f"{tmp_path / 'sd-v1-4.ckpt'}\n"
+    assert calls[2] == calls[3] == calls[0]
 
 
 def test_import_pulls_in_no_plotting_fitting_or_image_library():
