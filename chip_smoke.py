@@ -77,15 +77,16 @@ on and their launches counted:
     trace of 5 flagship train steps: the device's busy share and its top
     ops;
   * several cards (``phase_multi_card``), at world =
-    ``torch.cuda.device_count()``: the CLI's ``train`` (bf16 and f32) and
-    ``embed`` under ``python3 -m torch.distributed.run``, one rank a card,
-    against the commands without a launcher (bit for bit at world 1), one
-    set of files written; at four cards or more the flagship ``Trainer``
-    on (world,) and (world/2, 2) meshes and a data-parallel
+    ``torch.cuda.device_count()``: the CLI's ``train`` (bf16 and f32),
+    ``embed``, ``sweep`` and ``eval-consistency --sd-ckpt`` under ``python3
+    -m torch.distributed.run``, one rank a card, against the commands
+    without a launcher (bit for bit at world 1), one set of files written,
+    each rank's launches exact; at four cards or more the flagship
+    ``Trainer`` on (world,) and (world/2, 2) meshes and a data-parallel
     ``PerceptualEncoder`` with exact per-rank launches (on fewer cards the
-    phase says it did not run them); the train step, its gradient
-    all-reduce against the NVLink bound, and the SD encode at world 1 and
-    world N.
+    phase says it did not run them); a rank's import time, the train step,
+    its gradient all-reduce against the NVLink bound and its collective
+    alone, and the SD encode at world 1 and world N.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -96,6 +97,7 @@ without one.
 """
 from __future__ import annotations
 
+import csv
 import importlib.util
 import json
 import os
@@ -1769,6 +1771,35 @@ def write_jpegs(d: Path, frames: np.ndarray, ids=None) -> None:
         Image.fromarray(f).save(d / f"{i:010d}.jpg")
 
 
+def sweep_argv(frames_dir: Path, save_dir: Path) -> list:
+    """The CLI's ``sweep`` as a user runs it on ``train_video()``'s JPEGs:
+    2 trials of the ``contrastive_p`` space, 2 epochs each (the space's
+    300 cut), the seeded local search (no W&B)."""
+    return ["sweep", "--video", "chinese_chess", "--frames-dir",
+            str(frames_dir), "--variant", "contrastive_p", "--count", "2",
+            "--epochs", "2", "--no-wandb", "--seed", "0", "--save-dir",
+            str(save_dir)]
+
+
+def sd_consistency_argv(sd_dir: Path, sd_ckpt: Path, pckpt: Path,
+                        out: Path) -> list:
+    """``eval-consistency --variant percep --sd-ckpt`` of a percep-flagship
+    checkpoint on the ``PERCEP_FRAMES`` SD-sized JPEGs of ``sd_dir``, every
+    frame a test frame, 1 trial (the flags
+    ``tests/_torch_cli_rank.py::consistency_argv`` passes on the CPU)."""
+    return ["eval-consistency", "--video", "sd16", "--flags",
+            PERCEP_FRAMES // 2, "--last-frame", PERCEP_FRAMES - 1,
+            "--grey-out", 0, "--test-pct", 1.0, "--val-pct", 0.0,
+            "--frames-dir", sd_dir, "--variant", "percep", "--sd-ckpt",
+            sd_ckpt, "--ckpt", pckpt, "--latent-dim", LATENT,
+            "--lstm-residual", "--trials", 1, "--out-dir", out]
+
+
+# 3 perturbations x 1 trial x the SD batches of ``PERCEP_FRAMES`` frames,
+# each one encoder attention (on every rank: each encodes its rows).
+SD_CONSISTENCY_LAUNCHES = 3 * chunks(PERCEP_FRAMES, PERCEP_BATCH)
+
+
 def phase_cli_path(card: str) -> dict:
     """The command line (``svtpu_torch.cli.main``) on the card, in-process so
     that the wrappers' launch counters can be read, every command without
@@ -2045,17 +2076,9 @@ def phase_cli_path(card: str) -> dict:
               f"max abs diff {err} (limit 0: the same code on the same "
               f"card)")
         require(err == 0.0, "cli embed differs from encode_frames")
-        sd_video = ["--video", "sd16", "--flags", PERCEP_FRAMES // 2,
-                    "--last-frame", PERCEP_FRAMES - 1, "--grey-out", 0,
-                    "--test-pct", 1.0, "--val-pct", 0.0]
-        # Every frame is a test frame: 3 perturbations x 1 trial x 2 SD
-        # batches of 8, each one encoder attention.
-        sd_want = {"flash_attention": 3 * chunks(PERCEP_FRAMES,
-                                                 PERCEP_BATCH)}
-        run(["eval-consistency", *sd_video, "--frames-dir", sd_dir,
-             "--variant", "percep", "--sd-ckpt", d / "sd.ckpt", "--ckpt",
-             pckpt, "--latent-dim", LATENT, "--lstm-residual", "--trials",
-             1, "--out-dir", d / "cons_sd"], sd_want, peak_min=ae_bytes)
+        sd_want = {"flash_attention": SD_CONSISTENCY_LAUNCHES}
+        run(sd_consistency_argv(sd_dir, d / "sd.ckpt", pckpt,
+                                d / "cons_sd"), sd_want, peak_min=ae_bytes)
         require(flash_attention.launches_by_kernel["bf16_d512"]
                 == sd_want["flash_attention"],
                 "cli eval-consistency --sd-ckpt: attention not on the D = "
@@ -2730,9 +2753,7 @@ def phase_rest_path(card: str) -> dict:
         write_jpegs(d / "frames", frames, ids)
         video = ["--video", "chinese_chess", "--frames-dir",
                  str(d / "frames")]
-        sweep = ["sweep", *video, "--variant", "contrastive_p", "--count",
-                 "2", "--epochs", "2", "--no-wandb", "--seed", "0",
-                 "--save-dir", str(d / "sweep")]
+        sweep = sweep_argv(d / "frames", d / "sweep")
         steps = [0]
         step = Trainer._train_step
 
@@ -3073,6 +3094,46 @@ def latent_error(got: dict, ref: dict) -> float:
     return max(float(np.abs(got[k] - v).max()) for k, v in ref.items()) / top
 
 
+def import_seconds(card: str, root: Path = ROOT) -> dict:
+    """``python3 -X importtime -c "import svtpu_torch.cli"`` in a fresh
+    process on ``root``'s tree, what each launched rank pays before its
+    command: the cumulative seconds of ``svtpu_torch.cli``, of ``torch`` and
+    of ``torch.distributed.tensor`` under it (0 where it is not imported),
+    the process's wall seconds, and then what a train command pays next:
+    the seconds of building its first ``torch.optim.Adam`` (which imports
+    ``torch._dynamo``); printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c",
+         "import svtpu_torch.cli\nimport time, torch\n"
+         "t = time.perf_counter()\n"
+         "torch.optim.Adam([torch.zeros(1, requires_grad=True)])\n"
+         "print(time.perf_counter() - t)"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+        capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"import svtpu_torch.cli failed on "
+            f"{root}:\n{proc.stderr[-3000:]}")
+    cum = {}
+    # A module's line follows its imports': the lines up to the CLI's are
+    # what its import loaded.
+    for us, mod in re.findall(r"^import time:\s+\d+ \|\s+(\d+) \| +(\S+)$",
+                              proc.stderr, re.M):
+        cum.setdefault(mod, int(us) / 1e6)
+        if mod == "svtpu_torch.cli":
+            break
+    out = {"cli_s": cum["svtpu_torch.cli"], "torch_s": cum["torch"],
+           "dtensor_s": cum.get("torch.distributed.tensor", 0.0),
+           "wall_s": wall, "adam_s": float(proc.stdout.split()[-1])}
+    print(f"start-up: python3 -X importtime -c 'import svtpu_torch.cli' on "
+          f"{root}: {out['cli_s']:.3f} s cumulative, of it torch "
+          f"{out['torch_s']:.3f} s and torch.distributed.tensor "
+          f"{out['dtensor_s']:.3f} s (0: not imported); then the first "
+          f"torch.optim.Adam (a train command's) {out['adam_s']:.3f} s; the "
+          f"process {wall:.2f} s wall [{card}]")
+    return out
+
+
 def multi_card_worker(out_dir: str) -> None:
     """One rank of ``phase_multi_card``'s Python-API meshes (``chip_smoke.py
     --multi-card-worker DIR`` under ``torch.distributed.run``, 4 or more
@@ -3091,7 +3152,6 @@ def multi_card_worker(out_dir: str) -> None:
     import tempfile
 
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     from svtpu_torch.config import (PerceptualConfig, TrainConfig,
                                     rbvae_variant)
@@ -3135,7 +3195,7 @@ def multi_card_worker(out_dir: str) -> None:
                                                compute_dtype="float64"))
         st = tr.init_state()
         metrics, _ = tr._train_step(st, tr._upload_epoch(0)[0])
-        grads = {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+        grads = {n: (p.grad.full_tensor() if distributed.is_dtensor(p.grad)
                      else p.grad).float().cpu()
                  for n, p in st.model.named_parameters()
                  if p.grad is not None}
@@ -3211,7 +3271,8 @@ def multi_card_worker(out_dir: str) -> None:
         def dropped_shard(tensors, group, n):
             if group is not None and dist.get_rank(group) == n - 1:
                 for t in tensors:
-                    (t.to_local() if isinstance(t, DTensor) else t).zero_()
+                    (t.to_local() if distributed.is_dtensor(t)
+                     else t).zero_()
             all_reduce_mean_(tensors, group, n)
 
         distributed.all_reduce_mean_ = dropped_shard
@@ -3246,6 +3307,13 @@ def multi_card_worker(out_dir: str) -> None:
         group, n = tr._data_group, mesh.size("data")
         ar_ms, ar_sp = cuda_ms(lambda: distributed.all_reduce_mean_(
             grads, group, n), warmup=3, trials=5, iters=20)
+        # The collective alone, on a buffer of the packed gradients' size
+        # (zeros: a hundred sums in place stay finite); the rest of
+        # all_reduce_mean_ is the packing (cat, divide, copy_ back).
+        flat = torch.zeros(sum(g.numel() for g in grads),
+                           device=grads[0].device)
+        coll_ms, coll_sp = cuda_ms(lambda: dist.all_reduce(flat, group=group),
+                                   warmup=3, trials=5, iters=20)
         # 5 more steps, traced on rank 0: does the host hold the card back
         # at a quarter of the batch?
         idx = tr._upload_epoch(0)
@@ -3264,6 +3332,7 @@ def multi_card_worker(out_dir: str) -> None:
             "step_ms": step_ms, "local_batch": tr._hi - tr._lo,
             "grad_bytes": sum(g.numel() * g.element_size() for g in grads),
             "allreduce_ms": ar_ms, "allreduce_spread": ar_sp,
+            "collective_ms": coll_ms, "collective_spread": coll_sp,
             "embed_s": embed_seconds(enc, sd_frames)}
         distributed.barrier()
     finally:
@@ -3280,19 +3349,30 @@ def phase_multi_card(card: str) -> dict:
       (a) ``train --preset flagship --epochs 2`` on ``train_video()``'s
           396 frames as JPEGs, in bf16 and with ``--dtype float32`` (at
           world > 1 also ``float64``, and f32 and f64 each at seeds 0, 1
-          and 2), and ``embed`` of 16 seeded 720x1280 JPEGs through the SD
+          and 2); ``embed`` of 16 seeded 720x1280 JPEGs through the SD
           first stage (``percep_weights``), stochastic and
-          ``--deterministic``: each command one launch of ``-m
-          svtpu_torch.cli``, one after another, the trains with
-          ``SVTPU_DETERMINISTIC=1``. Each is held against the same command
+          ``--deterministic``; ``sweep`` (``sweep_argv``) on the same
+          JPEGs; and ``eval-consistency --sd-ckpt`` (``sd_consistency_argv``)
+          of a percep-flagship checkpoint trained here on the 16 SD
+          JPEGs: each command one launch of ``-m svtpu_torch.cli``, one
+          after another, the trains and the sweep with
+          ``SVTPU_DETERMINISTIC=1``, every rank writing its launches
+          (``SVTPU_LAUNCHES_DIR``). Each is held against the same command
           without a launcher, run in this process meanwhile (PyTorch's
           TF32 defaults, as the launched ranks have): at world 1 bit for
-          bit; at world > 1 the parameters within ``F32_PARAM_LIMIT`` (f32)
-          and ``F64_PARAM_LIMIT`` (f64 compute) of each tensor's largest
-          |value| and the (bf16) latents within 2e-2 of theirs, the bf16
-          parameters printed. One checkpoint directory a run and one
-          ``.npy`` a command; rank 0 alone prints; the launcher's exit code
-          0, which it gives only when every rank exited 0.
+          bit, every file of the sweep and ``consistency.csv`` included; at
+          world > 1 the parameters within ``F32_PARAM_LIMIT`` (f32) and
+          ``F64_PARAM_LIMIT`` (f64 compute) of each tensor's largest
+          |value|, the (bf16) latents within 2e-2 of theirs and each
+          consistency mean within 0.05 of its own, the bf16 parameters and
+          the (bf16) sweep trials printed; the sweep's sampled configs
+          equal key for key at every world. One set of files a command;
+          rank 0 alone prints; each rank's launches exact (``flash_attention``
+          once an SD batch, every other kernel 0); the launcher's exit code
+          0, which it gives only when every rank exited 0. First, the
+          start-up a rank pays: ``import svtpu_torch.cli`` in a fresh
+          process (``import_seconds``), which must not load
+          ``torch.distributed.tensor``.
       (b) at world >= 4 only, ``chip_smoke.py --multi-card-worker``: the
           flagship ``Trainer`` (both kernels) on (world,) and (world/2, 2)
           meshes, one f64-compute step's gradients within 1e-5 of each
@@ -3307,8 +3387,9 @@ def phase_multi_card(card: str) -> dict:
           without a mesh, each encode ``flash_attention`` once.
       (d) timings: the flagship step at global batch 32 and the SD encode
           of 16 frames on this card (world 1), and from the worker at
-          world N with the gradient all-reduce against its NVLink bound, a
-          trace of 5 steps (the card's busy share) and NCCL's transports;
+          world N with the gradient all-reduce against its NVLink bound
+          and its collective alone, a trace of 5 steps (the card's busy
+          share) and NCCL's transports;
           ``flash_attention`` at a rank's share of an SD batch at world 4,
           ``[2, 14080, 512]``.
 
@@ -3334,6 +3415,9 @@ def phase_multi_card(card: str) -> dict:
     world = torch.cuda.device_count()
     print(f"multi card: world {world} (torch.cuda.device_count()), one "
           f"rank a card under python3 -m torch.distributed.run [{card}]")
+    startup = import_seconds(card)
+    require(startup["dtensor_s"] == 0.0, "multi card: import svtpu_torch.cli "
+            "loads torch.distributed.tensor")
     counters = kernel_counters()
     total = dict.fromkeys(counters, 0)
     meta, splits, ids, states = train_video()
@@ -3381,57 +3465,92 @@ def phase_multi_card(card: str) -> dict:
         runs["embed"] = lambda root: embed_argv(False, root / "embed.npy")
         runs["embed_det"] = lambda root: embed_argv(True,
                                                     root / "embed_det.npy")
+        runs["sweep"] = lambda root: sweep_argv(d / "frames", root / "sweep")
+        pckpt = d / "percep_ckpt"
+        runs["consistency"] = lambda root: sd_consistency_argv(
+            sd_dir, d / "sd.ckpt", pckpt, root / "consistency")
+
+        def want(kind):
+            """A command's launches in one process (a rank, or this one):
+            ``svtpu``'s defaults leave the pixel kernels off, so only the
+            SD first stage's attention runs, once an SD batch (each rank
+            encodes its rows of every batch)."""
+            w = dict.fromkeys(counters, 0)
+            if kind.startswith("embed"):
+                w["flash_attention"] = chunks(PERCEP_FRAMES, PERCEP_BATCH)
+            elif kind == "consistency":
+                w["flash_attention"] = SD_CONSISTENCY_LAUNCHES
+            return w
+
+        def deterministic(kind):
+            return kind.startswith("train") or kind == "sweep"
 
         # Every command as ``python3 -m torch.distributed.run --standalone
-        # --nproc-per-node <world> -m svtpu_torch.cli ...``, the trains with
-        # SVTPU_DETERMINISTIC=1, one launch at a time, the first beside the
-        # runs without a launcher. Launches side by side failed: on four
-        # cards nine of them did not end in 300 s (their ranks time-slice
-        # each card, and NCCL's kernels spin on peers that are not
-        # scheduled); on one card four of them ran it out of memory.
+        # --nproc-per-node <world> -m svtpu_torch.cli ...``, the trains and
+        # the sweep with SVTPU_DETERMINISTIC=1, each rank writing its
+        # launches (SVTPU_LAUNCHES_DIR), one launch at a time, the first
+        # beside the runs without a launcher. Launches side by side failed:
+        # on four cards nine of them did not end in 300 s (their ranks
+        # time-slice each card, and NCCL's kernels spin on peers that are
+        # not scheduled); on one card four of them ran it out of memory.
         run_dir, ref_dir = d / f"world{world}", d / "one"
         run_dir.mkdir()
         ref_dir.mkdir()
 
         def launch(kind):
+            env = {"SVTPU_LAUNCHES_DIR": str(d / "launches" / kind)}
+            if deterministic(kind):
+                env["SVTPU_DETERMINISTIC"] = "1"
             return Torchrun(world, ["-m", "svtpu_torch.cli",
-                                    *runs[kind](run_dir)], d,
-                            **({"SVTPU_DETERMINISTIC": "1"}
-                               if kind.startswith("train") else {}))
+                                    *runs[kind](run_dir)], d, **env)
 
+        def quiet_cli(argv):
+            with warnings.catch_warnings(), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                warnings.simplefilter("ignore")
+                cli.main([str(a) for a in argv])
+            torch.cuda.synchronize()
+
+        t_a = time.perf_counter()
         launched = {k: launch(k) for k in list(runs)[:1]}
-        walls = {}
+        walls, rank_launches = {}, {}
         try:
             # The commands without a launcher, in this process meanwhile,
             # under PyTorch's TF32 defaults, as the launched ranks have them.
             torch.backends.cudnn.allow_tf32 = True
             torch.backends.cuda.matmul.allow_tf32 = False
             try:
+                # First the percep-flagship checkpoint that both
+                # eval-consistency runs read, on latents made here, as
+                # phase_cli_path makes its own.
+                np.save(d / "latents.npy", percep_latents(ids, states))
+                zero_counts(counters)
+                quiet_cli(["train", "--preset", "percep-flagship", "--video",
+                           "chinese_chess", "--embeddings",
+                           d / "latents.npy", "--epochs", 1, "--save-path",
+                           pckpt])
+                got = read_counts(counters)
+                require(not any(got.values()), f"multi card: train "
+                        f"--preset percep-flagship: launches {got}, "
+                        f"expected none")
                 for kind, argv in runs.items():
-                    if kind.startswith("train"):
+                    if deterministic(kind):
                         os.environ["SVTPU_DETERMINISTIC"] = "1"
                     else:
                         os.environ.pop("SVTPU_DETERMINISTIC", None)
                         torch.use_deterministic_algorithms(False)
                     zero_counts(counters)
-                    buf = io.StringIO()
-                    with warnings.catch_warnings(), \
-                            contextlib.redirect_stdout(buf):
-                        warnings.simplefilter("ignore")
-                        cli.main([str(a) for a in argv(ref_dir)])
-                    torch.cuda.synchronize()
+                    quiet_cli(argv(ref_dir))
                     got = read_counts(counters)
                     total = add_counts(total, got)
-                    want = dict.fromkeys(counters, 0)
-                    if kind.startswith("embed"):
-                        want["flash_attention"] = chunks(PERCEP_FRAMES,
-                                                         PERCEP_BATCH)
-                    require(got == want, f"multi card: {kind} without a "
-                            f"launcher: launches {got}, expected {want}")
+                    require(got == want(kind), f"multi card: {kind} without "
+                            f"a launcher: launches {got}, expected "
+                            f"{want(kind)}")
             finally:
                 os.environ.pop("SVTPU_DETERMINISTIC", None)
                 torch.use_deterministic_algorithms(False)
             torch.cuda.empty_cache()   # the next launches share this card
+            names = {fn.__name__: k for k, fn in counters.items()}
             for kind in runs:
                 if kind not in launched:
                     launched[kind] = launch(kind)
@@ -3439,11 +3558,29 @@ def phase_multi_card(card: str) -> dict:
                 require(rc == 0, f"multi card: python3 -m "
                         f"torch.distributed.run -m svtpu_torch.cli {kind} "
                         f"failed (exit {rc}):\n{out[-3000:]}\n{err[-3000:]}")
-                said = ("saved 16 embeddings" if kind.startswith("embed")
-                        else "best combined:")
-                require(out.count(said) == 1, f"multi card: the "
-                        f"ranks of {kind} printed {out!r}: rank 0 alone "
-                        f"prints")
+                said, n_said = {"train": ("best combined:", 1),
+                                "embed": ("saved 16 embeddings", 1),
+                                "sweep": ("best best_combined_score:", 1),
+                                "consistency": (" ± ", 3)}[
+                                    kind.split("_")[0]]
+                require(out.count(said) == n_said, f"multi card: the ranks "
+                        f"of {kind} printed {out!r}: rank 0 alone prints")
+                ranks = [json.loads((d / "launches" / kind /
+                                     f"launches_{r}.json").read_text())
+                         for r in range(world)]
+                rank_launches[kind] = [{names[n]: v for n, v in
+                                        r["launches"].items()}
+                                       for r in ranks]
+                require(all(c == want(kind) for c in rank_launches[kind]),
+                        f"multi card: {kind}: the ranks' launches "
+                        f"{rank_launches[kind]}, expected {want(kind)} "
+                        f"on each")
+                require(all(r["flash_attention_by_kernel"]["bf16_d512"]
+                            == want(kind)["flash_attention"] for r in ranks),
+                        f"multi card: {kind}: attention not on the D = 512 "
+                        f"kernel: {ranks}")
+                for c in rank_launches[kind]:
+                    total = add_counts(total, c)
         finally:
             for t in launched.values():
                 t.close()
@@ -3451,19 +3588,42 @@ def phase_multi_card(card: str) -> dict:
             torch.backends.cuda.matmul.allow_tf32 = saved_tf32
         train_kinds = [k for k in runs if k.startswith("train")]
         written = sorted(p.name for p in run_dir.iterdir())
-        require(written == sorted(train_kinds + ["embed.npy", "embed_det.npy"])
+        sweep_files = ["best_model_local_0", "best_model_local_1",
+                       "local_0_config.json", "local_1_config.json",
+                       "sweep_results.json"]
+
+        def files(root):
+            return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                          if p.is_file())
+
+        require(written == sorted(train_kinds + [
+                    "consistency", "embed.npy", "embed_det.npy", "sweep"])
                 and all(sorted(p.name for p in (run_dir / k).iterdir())
                         == ["best.json", "best.pt", "latest.json",
-                            "latest.pt"] for k in train_kinds),
-                f"multi card: the launched runs wrote {written}")
+                            "latest.pt"] for k in train_kinds)
+                and sorted(p.name for p in (run_dir / "sweep").iterdir())
+                == sweep_files
+                and files(run_dir / "sweep") == files(ref_dir / "sweep")
+                and "consistency.csv" in files(run_dir / "consistency")
+                and files(run_dir / "consistency")
+                == files(ref_dir / "consistency"),
+                f"multi card: the launched runs wrote {written}; sweep "
+                f"{files(run_dir / 'sweep')}, consistency "
+                f"{files(run_dir / 'consistency')}")
         print(f"multi card (a): {len(runs)} launches of python3 -m "
               f"torch.distributed.run --standalone --nproc-per-node {world} "
               f"-m svtpu_torch.cli, each exit 0 (every rank exited 0), one "
               f"NCCL group of {world} rank(s) each (NCCL refuses two ranks "
               f"on one card); seconds with start-up, one after another: "
-              f"{', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
-              f"written: {written}, one checkpoint directory a train run and "
-              f"one .npy an embed [{card}]")
+              f"{', '.join(f'{k} {v:.1f}' for k, v in walls.items())} "
+              f"({time.perf_counter() - t_a:.1f} s for (a) with the runs "
+              f"without a launcher); the ranks' launches "
+              f"{ {k: [c['flash_attention'] for c in v] for k, v in rank_launches.items() if want(k)['flash_attention']} }"
+              f" (flash_attention, rank by rank; every other kernel 0 on "
+              f"every rank of every command); written: {written}, one "
+              f"checkpoint directory a train run, one .npy an embed, one "
+              f"sweep directory {sweep_files}, one results directory "
+              f"{files(run_dir / 'consistency')} [{card}]")
         errs, exact, finite, worst = {}, {}, True, {}
         for kind in train_kinds:
             got, _ = BestCheckpointer(run_dir / kind).restore("latest")
@@ -3495,9 +3655,65 @@ def phase_multi_card(card: str) -> dict:
               + "; ".join(f"{k} {errs[k]:.3e} ({worst[k]})"
                           for k in train_kinds)
               + f"; embed stochastic {errs['embed']:.3e}, --deterministic "
-              f"{errs['embed_det']:.3e} (limits: {limits}); the flagship "
-              f"runs without a launcher launched flash_attention "
+              f"{errs['embed_det']:.3e} (limits: {limits}); the runs "
+              f"without a launcher and the ranks launched flash_attention "
               f"{total['flash_attention']} times [{card}]")
+
+        # The sweep: the same sampled configs, key for key; every file bit
+        # for bit at world 1; at world > 1 its trials (bf16,
+        # svtpu_torch/sweeps/runner.py) are printed and held to nothing, as
+        # the bf16 train run is.
+        trials = []
+        for t in range(2):
+            got, ref = (json.loads((root / "sweep" /
+                                    f"local_{t}_config.json").read_text())
+                        for root in (run_dir, ref_dir))
+            require(got["config"] == ref["config"], f"multi card: sweep "
+                    f"trial {t}'s config {got['config']}, without a "
+                    f"launcher {ref['config']}")
+            g, r = (BestCheckpointer(root / "sweep" / f"best_model_local_{t}")
+                    .restore("latest")[0]["model"]
+                    for root in (run_dir, ref_dir))
+            rel = rel_errors(g, r)
+            name = max(rel, key=rel.get)
+            finite &= all(bool(torch.isfinite(v).all()) for v in g.values())
+            trials.append(f"trial {t} best_combined_score "
+                          f"{got['best_combined_score']:.6f} (without a "
+                          f"launcher {ref['best_combined_score']:.6f}), "
+                          f"parameters {rel[name]:.3e} ({name})")
+        exact["sweep"] = all(
+            (run_dir / "sweep" / f).read_bytes()
+            == (ref_dir / "sweep" / f).read_bytes()
+            for f in files(ref_dir / "sweep"))
+        print(f"check multi card (a) sweep --count 2 --epochs 2 at world "
+              f"{world} against the run without a launcher: the sampled "
+              f"configs equal key for key; " + "; ".join(trials)
+              + f"; every file bit for bit: {exact['sweep']} (required at "
+              f"world 1 only) [{card}]")
+
+        # eval-consistency --sd-ckpt: the same models and perturbations in
+        # the same order; a consistency score is a share in [0, 1].
+        rows = [list(csv.DictReader((root / "consistency" /
+                                     "consistency.csv").read_text()
+                                    .splitlines()))
+                for root in (run_dir, ref_dir)]
+        keys = [[(r["model"], r["perturbation"]) for r in rs] for rs in rows]
+        require(keys[0] == keys[1] and len(keys[1]) == 3, f"multi card: "
+                f"eval-consistency rows {keys[0]}, without a launcher "
+                f"{keys[1]}")
+        diffs = [abs(float(g["mean"]) - float(r["mean"]))
+                 for g, r in zip(*rows)]
+        exact["consistency"] = all(
+            (run_dir / "consistency" / f).read_bytes()
+            == (ref_dir / "consistency" / f).read_bytes()
+            for f in files(ref_dir / "consistency"))
+        print(f"check multi card (a) eval-consistency --sd-ckpt at world "
+              f"{world} against the run without a launcher: "
+              + "; ".join(f"{g['model']} {g['perturbation']} mean "
+                          f"{g['mean']} (|diff| {e:.6f})"
+                          for g, e in zip(rows[0], diffs))
+              + f" (limit 0.05 at world > 1); consistency.csv bit for bit: "
+              f"{exact['consistency']} [{card}]")
         require(finite, "multi card: a launched run's parameters are not "
                 "finite")
         if world == 1:
@@ -3506,6 +3722,8 @@ def phase_multi_card(card: str) -> dict:
         else:
             over = {k: e for k, e in errs.items()
                     if e > param_limit(k, latents=2e-2)}
+            over.update({f"consistency {g['perturbation']}": e
+                         for g, e in zip(rows[0], diffs) if e > 0.05})
             require(not over, f"multi card: beyond the limits at world "
                     f"{world}: {over}")
 
@@ -3627,7 +3845,12 @@ def phase_multi_card(card: str) -> dict:
               f"{tm['grad_bytes'] / 1e6:.2f} MB f32): {tm['allreduce_ms']:.4f}"
               f" ms (spread {tm['allreduce_spread']:.3f}), "
               f"{tm['allreduce_ms'] / tm['step_ms']:.1%} of the step, bound "
-              f"{bound}; embed of {2 * PERCEP_BATCH} frames: "
+              f"{bound}; of it the collective alone (dist.all_reduce of "
+              f"the packed size) {tm['collective_ms']:.4f} ms (spread "
+              f"{tm['collective_spread']:.3f}), "
+              f"{tm['collective_ms'] / tm['allreduce_ms']:.1%}, the packing "
+              f"(cat, divide, copy_ back) the rest; embed of "
+              f"{2 * PERCEP_BATCH} frames: "
               f"{tm['embed_s']:.3f} s, {2 * PERCEP_BATCH / tm['embed_s']:.2f} "
               f"frames/s (world 1: {PERCEP_FRAMES / embed_s:.2f}) [{card}]")
         for r in ranks:

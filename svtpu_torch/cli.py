@@ -37,6 +37,8 @@ return at once. Without a launcher a command is one process on one card.
 
 ``SVTPU_DETERMINISTIC=1`` in the environment makes a command use PyTorch's
 deterministic algorithms, so that two runs of it give the same bits.
+``SVTPU_LAUNCHES_DIR=D`` makes each rank write its hand kernels' launches
+in the command to ``D/launches_<rank>.json``.
 
 Run: ``python -m svtpu_torch.cli <command> --help``.
 """
@@ -786,6 +788,27 @@ def _quiet_unless_main():
         yield
 
 
+def _write_launches(directory) -> None:
+    """This rank's kernel launches as ``launches_<rank>.json`` under
+    ``directory``: each kernel wrapper's ``.launches`` since the process
+    started (a launched command's own) and ``flash_attention``'s by kernel,
+    for a caller that cannot read the counts of another process."""
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
+    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+
+    counts = {fn.__name__: fn.launches for fn in (
+        fused_conv01, lstm_binary_concrete, binary_concrete_fused,
+        flash_attention)}
+    path = Path(directory) / f"launches_{distributed.launched_rank()}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({
+        "launches": counts,
+        "flash_attention_by_kernel": dict(flash_attention.launches_by_kernel)
+    }))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="svtpu_torch", description=__doc__,
                                 formatter_class=argparse.
@@ -1087,15 +1110,18 @@ def main(argv=None):
         # A command of one card runs on rank 0 alone, with no group; the
         # other ranks return at once (the launcher waits for every rank,
         # and fails the job if one fails).
-        return args.fn(args) if distributed.launched_rank() == 0 else None
-    try:
-        with _quiet_unless_main():
-            out = args.fn(args)
-        distributed.barrier()
-        return out
-    finally:
-        if own_group and dist.is_initialized():
-            dist.destroy_process_group()
+        out = args.fn(args) if distributed.launched_rank() == 0 else None
+    else:
+        try:
+            with _quiet_unless_main():
+                out = args.fn(args)
+            distributed.barrier()
+        finally:
+            if own_group and dist.is_initialized():
+                dist.destroy_process_group()
+    if os.environ.get("SVTPU_LAUNCHES_DIR"):
+        _write_launches(os.environ["SVTPU_LAUNCHES_DIR"])
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

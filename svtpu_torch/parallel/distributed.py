@@ -15,12 +15,12 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import sys
 from typing import Callable, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 
 from svtpu_torch import resolve_device
 
@@ -64,6 +64,16 @@ def initialize(init_method: Optional[str] = None,
     return True
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``DTensor``, without importing
+    ``torch.distributed.tensor`` (with sympy behind it, a large share of a
+    command's start-up): none exists before that module is loaded, which
+    only a "model" mesh axis (``sharding.parallelize_rbvae``) or a caller's
+    own ``DTensor`` does."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
 def local_batch_to_global(batch, mesh, axis: str = "data") -> torch.Tensor:
     """The global batch from each rank's local rows along ``axis``
     (``[n * b, ...]`` from ``[b, ...]``, in rank order), on the mesh's
@@ -86,8 +96,7 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group, n: int) -> None:
     if group is None or not tensors:
         return
     with torch.no_grad():
-        tensors = [t.to_local() if isinstance(t, DTensor) else t
-                   for t in tensors]
+        tensors = [t.to_local() if is_dtensor(t) else t for t in tensors]
         flat = torch.cat([t.reshape(-1) for t in tensors])
         dist.all_reduce(flat, group=group)
         flat /= n

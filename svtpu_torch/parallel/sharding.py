@@ -28,11 +28,8 @@ from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
-from torch.distributed.tensor.parallel import (ColwiseParallel,
-                                               RowwiseParallel,
-                                               parallelize_module)
 
+from svtpu_torch.parallel.distributed import is_dtensor
 from svtpu_torch.parallel.mesh import Mesh, Sharding, Spec
 
 # Row-parallel encoder projection ([L, D_in] split on D_in: the matmul's
@@ -98,6 +95,13 @@ def parallelize_rbvae(model: nn.Module, mesh: Mesh, axis: str = "model",
     stays a ``Dense``."""
     if mesh.device_mesh is None:
         return
+    # Here, not at module level: torch.distributed.tensor is loaded only
+    # where a "model" axis needs it (``distributed.is_dtensor``).
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.parallel import (ColwiseParallel,
+                                                   RowwiseParallel,
+                                                   parallelize_module)
+
     shardings = params_shardings(model, mesh, rules)
     styles = {(None, axis): RowwiseParallel, (axis, None): ColwiseParallel}
     plan = {prefix: styles[spec](input_layouts=Replicate(),
@@ -109,7 +113,7 @@ def parallelize_rbvae(model: nn.Module, mesh: Mesh, axis: str = "model",
 
 
 def _whole(t):
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def full_state_dict(model: nn.Module) -> dict:
@@ -137,9 +141,11 @@ def local_state(model: nn.Module, model_sd: dict, opt_state: dict,
 
     def like(t, name):
         p = params.get(name)
-        if not isinstance(p, DTensor) or not isinstance(t, torch.Tensor) \
+        if not is_dtensor(p) or not isinstance(t, torch.Tensor) \
                 or t.shape != p.shape:
             return t
+        from torch.distributed.tensor import distribute_tensor
+
         return distribute_tensor(t.to(p.device_mesh.device_type),
                                  p.device_mesh, p.placements)
 

@@ -51,7 +51,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
 
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig, TrainConfig
@@ -421,8 +420,8 @@ class Trainer:
             parallelize_rbvae(model, self.mesh)
         params = [p for p in model.parameters() if p.requires_grad]
         groups = [{"params": [p for p in params
-                              if not isinstance(p, DTensor)]}]
-        sharded = [p for p in params if isinstance(p, DTensor)]
+                              if not distributed.is_dtensor(p)]}]
+        sharded = [p for p in params if distributed.is_dtensor(p)]
         if sharded:
             # The multi-tensor Adam on the card refuses a list that mixes
             # DTensors and tensors: the sharded ones form a group of their

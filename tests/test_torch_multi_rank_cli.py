@@ -5,8 +5,9 @@ the environment ``python -m torch.distributed.run`` gives each process
 ``embed``, ``interpolate``, ``eval-consistency --sd-ckpt`` and ``sweep``
 run on both ranks and write one set of files from rank 0, equal to the
 one-process run's; ``encode`` runs on rank 0 alone while rank 1 has
-returned; a rank that raises fails the launch. Also the rank helpers in one process:
-``resolve_device`` under a (faked) NCCL group, ``barrier``,
+returned; a rank that raises fails the launch; each rank writes its kernel
+launches where ``SVTPU_LAUNCHES_DIR`` asks. Also the rank helpers in one
+process: ``resolve_device`` under a (faked) NCCL group, ``barrier``,
 ``main_then_barrier``, ``share`` and ``initialize`` for the CPU."""
 import contextlib
 import json
@@ -29,9 +30,10 @@ from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.parallel import distributed
 from svtpu_torch.training.checkpoints import BestCheckpointer
 
-from _torch_cli_rank import (SMALL_AE, SMALL_PERCEP, consistency_argv,
-                             embed_argv, encode_argv, interpolate_argv,
-                             small_variant, train_argv)
+from _torch_cli_rank import (SMALL_AE, SMALL_PERCEP, TINY_SPACE,
+                             consistency_argv, embed_argv, encode_argv,
+                             interpolate_argv, small_variant, sweep_argv,
+                             train_argv)
 from _torch_port import seeded_ae_params
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -50,7 +52,8 @@ def _launch(case: str, data: Path, out: Path, timeout: float = 150):
     for r in range(WORLD):
         env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   WORLD_SIZE=str(WORLD), RANK=str(r), LOCAL_RANK=str(r))
+                   WORLD_SIZE=str(WORLD), RANK=str(r), LOCAL_RANK=str(r),
+                   SVTPU_LAUNCHES_DIR=str(out / "launches"))
         procs.append(subprocess.Popen(
             [sys.executable, WORKER, case, str(data), str(out)], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -273,6 +276,53 @@ def test_sweep_two_ranks_one_set_of_files(two_ranks):
     assert json.loads((sweep / "local_0_config.json").read_text())[
         "config"] == c0[0]
     assert not [w for w in _writes(out, 1) if w[0] == "checkpoint"]
+
+
+def test_sweep_two_ranks_equal_one_process(two_ranks, data, tmp_path,
+                                           monkeypatch):
+    """The local ``sweep`` of the 2 ranks against the same command in one
+    process: the same sampled config, key for key, and the same set of
+    file names."""
+    from svtpu_torch.sweeps import runner
+
+    out, _ = two_ranks
+    monkeypatch.setitem(runner.SPACES, "contrastive_p",
+                        dict(runner.SPACES["contrastive_p"], **TINY_SPACE))
+    trained = []
+    train_with_config = runner.train_with_config
+    monkeypatch.setattr(runner, "train_with_config",
+                        lambda config, *a, **k: trained.append(config)
+                        or train_with_config(config, *a, **k))
+    with _one_thread():
+        cli.main(sweep_argv(data, tmp_path / "sweep", wandb=False))
+    two = json.loads((out / "sweep_configs_0.json").read_text())
+    assert len(trained) == 1
+    assert two[0] == json.loads(json.dumps(trained[0]))
+    assert json.loads((out / "sweep" / "local_0_config.json").read_text())[
+        "config"] == json.loads((tmp_path / "sweep" / "local_0_config.json")
+                                .read_text())["config"]
+
+    def names(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+
+    assert names(out / "sweep") == names(tmp_path / "sweep")
+    assert "best_model_local_0/best.pt" in names(out / "sweep")
+
+
+def test_each_rank_writes_its_launches(two_ranks):
+    """With ``SVTPU_LAUNCHES_DIR`` set, each rank writes
+    ``launches_<rank>.json`` when a command returns: the four kernel
+    wrappers' launches, all 0 on the CPU (their plain versions run), and
+    ``flash_attention``'s by kernel."""
+    out, _ = two_ranks
+    for r in range(WORLD):
+        got = json.loads((out / "launches" / f"launches_{r}.json")
+                         .read_text())
+        assert got["launches"] == dict.fromkeys(
+            ["fused_conv01", "lstm_binary_concrete", "binary_concrete_fused",
+             "flash_attention"], 0)
+        assert got["flash_attention_by_kernel"] == dict.fromkeys(
+            ["bf16_d512", "bf16", "f32"], 0)
 
 
 def test_wandb_sweep_reports_from_rank0(two_ranks):
