@@ -34,13 +34,20 @@ on and their launches counted:
   * the training path: ``Trainer.train`` of the flagship preset (latent
     25, bf16, full width, batch 32) on a seeded synthetic video at the
     geometry of ``chinese_chess``, 3 fused epochs and the same 3 one step
-    at a time under deterministic algorithms, whose probes run
-    ``fused_conv01`` and ``lstm_binary_concrete``; one f32 step on the
-    card against the same step on the CPU; a fused epoch's steps under
-    ``torch.cuda.set_sync_debug_mode("error")``; one epoch of the
+    at a time under deterministic algorithms, every step after two eager
+    warm-up steps a replay of the step's CUDA graph (counted), whose
+    probes run ``fused_conv01`` and ``lstm_binary_concrete``; one f32 step
+    on the card against the same step on the CPU; a fused epoch's steps
+    under ``torch.cuda.set_sync_debug_mode("error")``; a graph's draws
+    from a reseeded persistent generator; the trainer's capturable Adam
+    against optax's formula; the graph route against the eager route bit
+    for bit (parameters, Adam state, metric sums; bf16, f32, remat; across
+    an anneal update, a raised temperature floor and a restart); a step
+    that reads the card on the host failing its capture; one epoch of the
     ``percep-flagship`` preset on seeded SD-shaped latents; and the train
-    step's time, its forward/backward/Adam split, peak memory, FLOP count
-    and bound;
+    step's time on both routes, the capture's seconds, a trace of each
+    route (the card's busy share), the eager step's forward/backward/Adam
+    split, peak memory, FLOP count and bound;
   * the evaluation path: the flagship read back through
     ``RBVAEBundle.from_checkpoint`` and evaluated by
     ``evaluate_consistency``, ``evaluate_hamming``,
@@ -73,20 +80,21 @@ on and their launches counted:
     --sweep-dir`` and the sweep's resume, data and tensor parallelism on a
     single-rank NCCL group (the flagship ``Trainer`` on (1,) and (1, 1)
     meshes, a data-parallel ``PerceptualEncoder`` at the SD first stage's
-    widths) against the runs without a mesh, and a ``torch.profiler``
-    trace of 5 flagship train steps: the device's busy share and its top
-    ops;
+    widths) against the runs without a mesh;
   * several cards (``phase_multi_card``), at world =
     ``torch.cuda.device_count()``: the CLI's ``train`` (bf16 and f32),
     ``embed``, ``sweep`` and ``eval-consistency --sd-ckpt`` under ``python3
     -m torch.distributed.run``, one rank a card, against the commands
-    without a launcher (bit for bit at world 1), one set of files written,
-    each rank's launches exact; at four cards or more the flagship
-    ``Trainer`` on (world,) and (world/2, 2) meshes and a data-parallel
-    ``PerceptualEncoder`` with exact per-rank launches (on fewer cards the
-    phase says it did not run them); a rank's import time, the train step,
-    its gradient all-reduce against the NVLink bound and its collective
-    alone, and the SD encode at world 1 and world N.
+    without a launcher (bit for bit at world 1, where the launched trains
+    take the step graph and the references the eager route), one set of
+    files written, each rank's launches and step graphs exact; at four
+    cards or more the flagship ``Trainer`` on (world,) and (world/2, 2)
+    meshes, the graph route against the eager route on the (world,) mesh
+    bit for bit, and a data-parallel ``PerceptualEncoder`` with exact
+    per-rank launches (on fewer cards the phase says it did not run them);
+    a rank's import time, the train step on both routes, its gradient
+    all-reduce against the NVLink bound and its collective alone, a trace
+    of each route, and the SD encode at world 1 and world N.
 
 Each path's deterministic codes are held against its plain path's, and the
 paths and every kernel are timed beside the plain version, a library call
@@ -97,6 +105,7 @@ without one.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import importlib.util
 import json
@@ -1225,6 +1234,7 @@ def phase_train_path(card: str) -> dict:
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
     from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.training.step_graph import WARMUP_STEPS, StepGraph
     from svtpu_torch.training.trainer import Trainer
 
     t_phase = time.perf_counter()
@@ -1280,12 +1290,14 @@ def phase_train_path(card: str) -> dict:
                     "gradients disagree with the CPU")
 
     # The main path: 3 fused epochs, then the same 3 one step at a time,
-    # deterministic algorithms on, the probes' kernel launches counted.
+    # deterministic algorithms on, the probes' kernel launches and the step
+    # graphs counted.
     counters = {"fused_conv01": fused_conv01,
                 "lstm_binary_concrete": lstm_binary_concrete,
                 "binary_concrete": binary_concrete_fused}
     for fn in counters.values():
         fn.launches = 0
+    StepGraph.captures = StepGraph.replays = 0
     hist, trainers, wall = {}, {}, {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     with warnings.catch_warnings(record=True) as caught:
@@ -1302,6 +1314,7 @@ def phase_train_path(card: str) -> dict:
             trainers[fused] = tr
     torch.use_deterministic_algorithms(False)
     launches = {k: fn.launches for k, fn in counters.items()}
+    graphs = step_graph_counts()
     nondet = sorted({str(w.message).split(".")[0] for w in caught
                      if "deterministic" in str(w.message)})
     print(f"train path: Trainer.train x{TRAIN_EPOCHS} epochs fused + "
@@ -1344,6 +1357,19 @@ def phase_train_path(card: str) -> dict:
     else:
         require(param_err <= 1e-6, "fused vs per-step: parameters disagree")
 
+    # Check 3b: every step of both runs went through the step graph: per
+    # run one capture, and a replay for each step after the warm-up ones.
+    steps = TRAIN_EPOCHS * trainers[True].train_batcher.num_batches()
+    want_graphs = {"captures": 2, "replays": 2 * (steps - WARMUP_STEPS)}
+    print(f"check the main path's train steps ran as CUDA graph replays: "
+          f"{graphs} over 2 runs of {steps} steps ({WARMUP_STEPS} eager "
+          f"warm-up steps a run; expected {want_graphs}); each run freed its "
+          f"graph when it returned: "
+          f"{all(h['final_state'].graph is None for h in hist.values())}")
+    require(graphs == want_graphs and all(
+        h["final_state"].graph is None for h in hist.values()),
+        f"main path: step graphs {graphs}, expected {want_graphs}")
+
     # Check 4: the probes ran the kernels, and agree with the plain route.
     probed = sum(len([v for v in h["val_losses"] if v])
                  for h in hist.values())
@@ -1370,7 +1396,7 @@ def phase_train_path(card: str) -> dict:
     # sync-debug "error", its upload and readback outside.
     state = hist[True]["final_state"]
     for _ in range(2):
-        tr._fused_epoch(state, TRAIN_EPOCHS)       # warm, deterministic off
+        tr._fused_epoch(state, TRAIN_EPOCHS)   # warm-up steps, the capture
     fused_s = []
     for e in range(3):
         idx = tr._upload_epoch(TRAIN_EPOCHS + e)
@@ -1414,7 +1440,99 @@ def phase_train_path(card: str) -> dict:
     print(f"time: probes (state_consistency + state_separation, {n_val} val "
           f"frames in {chunks} chunk(s) of 128 through both kernels): "
           f"{statistics.median(probe_s):.4f} s median of 3 [{card}]")
-    phase_train_breakdown(card, tr, state, idx, mcfg, B * 2 * S)
+    phase_train_breakdown(card, tr, mcfg, B * 2 * S)
+
+    # Check 6b: the pieces the step graph rests on. A replay picks up the
+    # seeds set before it; the trainer's Adam (capturable) is optax's.
+    seeds = replay_seeds()
+    print(f"check a CUDA graph's draws from a persistent generator reseeded "
+          f"before each replay: {seeds} (offset 0 and draws equal to a "
+          f"fresh generator's, each seed) [{card}]")
+    require(all(r["offset_before"] == 0 and r["draws_equal"] for r in seeds),
+            "a replay did not pick up the generator's seed")
+    adam_err = adam_against_optax(Trainer(mcfg, tcfg, store, splits,
+                                          meta.flags, device="cuda"))
+    print(f"check the trainer's Adam (capturable, on the card) against "
+          f"optax's adam in float64 on the host, 2 steps on the flagship's "
+          f"parameters with seeded gradients: max |param diff| "
+          f"{adam_err:.3e} (limit 1e-5, tests/test_torch_objective.py's) "
+          f"[{card}]")
+    require(adam_err <= 1e-5, "capturable Adam disagrees with optax")
+
+    # Check 7: the step graph against the eager route, bit for bit, from
+    # the same state, across an anneal update and a raised floor; in bf16
+    # and f32, remat off and on; then across a restart; then a step that
+    # reads the card on the host must fail its capture.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            f32 = dataclasses.replace(mcfg, compute_dtype="float32")
+            for name, cfg in (
+                    ("bf16", mcfg), ("f32", f32),
+                    ("bf16, remat", dataclasses.replace(mcfg, remat=True)),
+                    ("f32, remat", dataclasses.replace(f32, remat=True))):
+                got = routes_agree(lambda cfg=cfg: Trainer(
+                    cfg, tcfg, store, splits, meta.flags, device="cuda"))
+                print(f"check graph route vs eager route, flagship {name}, "
+                      f"{got['steps']} steps from the same state (2 epochs "
+                      f"one step at a time, floor raised to {ROUTE_FLOOR}, "
+                      f"a fused epoch under sync-debug 'error', 1 epoch one "
+                      f"step at a time; epochs' mean temperature "
+                      f"{got['temps']}): every metric and metric sum equal "
+                      f"{got['metrics_equal']}, {got['tensors']} parameter "
+                      f"and Adam tensors, differing {got['differ'] or 'none'}"
+                      f"; step graphs graph route {got['graph']}, eager "
+                      f"route {got['eager']}; capture "
+                      f"{got['capture_s']:.3f} s [{card}]")
+                require(got["equal"], f"graph route vs eager route ({name}): "
+                        f"not bit for bit: {got['differ']}")
+                require(got["graph"] == {"captures": 1, "replays":
+                                         got["steps"] - WARMUP_STEPS}
+                        and got["eager"] == {"captures": 0, "replays": 0},
+                        f"graph route vs eager route ({name}): step graphs "
+                        f"{got['graph']}, {got['eager']}")
+            rcfg = dataclasses.replace(tcfg, restart_check_epoch=2,
+                                       restart_min_sep=1e9, max_restarts=1,
+                                       val_every=1)
+            rh, rc = {}, {}
+            for graphed in (True, False):
+                rtr = Trainer(mcfg, rcfg, store, splits, meta.flags,
+                              device="cuda")
+                rtr._graphed = graphed
+                c0 = step_graph_counts()
+                rh[graphed] = rtr.train(num_epochs=4)
+                rc[graphed] = {k: v - c0[k]
+                               for k, v in step_graph_counts().items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rbits = [train_state_bits(rh[g]["final_state"]) for g in (True, False)]
+    rdiff = sorted(k for k in rbits[1] if not torch.equal(rbits[0][k],
+                                                          rbits[1][k]))
+    print(f"check graph route vs eager route across a restart: Trainer.train "
+          f"4 epochs, restart after epoch 1 (restarts "
+          f"{[len(h['restarts']) for h in rh.values()]}); step graphs graph "
+          f"route {rc[True]}, eager route {rc[False]}; final parameters and "
+          f"Adam state differing: {rdiff or 'none'} [{card}]")
+    require(all(len(h["restarts"]) == 1 for h in rh.values())
+            and rc[True]["captures"] == 2 and rc[False]["captures"] == 0
+            and not rdiff, "graph route across a restart")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--capture-failure"], capture_output=True,
+                          text=True, cwd=ROOT, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    require(proc.returncode == 0, f"capture failure check: exit "
+            f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    failed = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"check a step that reads the card on the host (float(loss)) fails "
+          f"its capture, in a process of its own: raised "
+          f"{failed['raised']!r}; no graph: {failed['no_graph']}; parameters "
+          f"and Adam state unchanged by the failed step (no eager step in "
+          f"its place): {failed['unchanged']} [{card}]")
+    require(failed["raised"] and "capturing the train step" in failed["raised"]
+            and failed["no_graph"] and failed["unchanged"],
+            "a capture that fails must raise StepCaptureError and train "
+            "nothing")
 
     # Check 6: one epoch of percep-flagship on SD-shaped latents.
     emb = percep_latents(ids, states)
@@ -1445,29 +1563,27 @@ def phase_train_path(card: str) -> dict:
     return {"launches": launches, "percep_launches": p_launches}
 
 
-def phase_train_breakdown(card: str, tr, state, idx, mcfg,
-                          frames: int) -> None:
-    """One flagship step's time, its forward (the objective), backward and
-    Adam parts, CUDA events around each over steps of the epoch ``idx``;
-    peak memory; the step's FLOPs and its bound at the bf16 peak."""
+def phase_train_breakdown(card: str, tr, mcfg, frames: int) -> None:
+    """One flagship step's time on both routes (CUDA events, fresh states:
+    a replay of the step's graph and the eager step), the capture's
+    seconds, the eager step's forward (the objective), backward and Adam
+    parts, peak memory, a trace of 5 steps of each route (the card's busy
+    share); the step's FLOPs and its bound at the bf16 peak."""
     from svtpu_torch import batch_seed
     from svtpu_torch.training.schedules import temperature_schedule
     from svtpu_torch.training.trainer import Noise, pair_objective
 
     cfg = tr.cfg
-    n = len(idx)
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(12):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        tr._train_step(state, idx[i % n])
-        end.record()
-        times.append((start, end))
-    torch.cuda.synchronize()
-    step_ms = statistics.median(s.elapsed_time(e) for s, e in times[2:])
+    graph_ms, gstate = flagship_step_ms(tr, graphed=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    capture_s = gstate.graph.capture_s
+    gtrace = trace_steps(tr, gstate)
+    del gstate
+    step_ms, state = flagship_step_ms(tr, graphed=False)
+    etrace = trace_steps(tr, state)
+    idx = tr._upload_epoch(0)
+    n = len(idx)
     parts = []
     for i in range(10):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1487,19 +1603,34 @@ def phase_train_breakdown(card: str, tr, state, idx, mcfg,
         ev[3].record()
         parts.append(ev)
     torch.cuda.synchronize()
+    tr._graphed = True
     fwd, bwd, adam = (statistics.median(e[j].elapsed_time(e[j + 1])
                                         for e in parts[2:]) for j in range(3))
     flops = train_step_flops(mcfg, frames)
     bound_ms = flops / PEAK_BF16_FLOPS * 1e3
     print(f"time: train step (flagship, batch [{frames // 10},2,5,256,256,3], "
-          f"bf16, CUDA events, median of 10 after 2): {step_ms:.3f} ms, "
-          f"{frames / step_ms * 1e3:.1f} train frames/s ({frames} frames a "
-          f"step through the model); forward {fwd:.3f} ms, backward "
-          f"{bwd:.3f} ms, Adam {adam:.3f} ms; peak memory {peak:.2f} GiB; "
+          f"bf16, CUDA events, median of 10 after 2): graph route (a replay) "
+          f"{graph_ms:.3f} ms, {frames / graph_ms * 1e3:.1f} train frames/s; "
+          f"eager route {step_ms:.3f} ms, {frames / step_ms * 1e3:.1f} train "
+          f"frames/s; the graph {graph_ms / step_ms:.3f}x the eager step; "
+          f"capture {capture_s:.3f} s (host); the eager step's forward "
+          f"{fwd:.3f} ms, backward {bwd:.3f} ms, Adam (capturable) "
+          f"{adam:.3f} ms; peak memory (graph route) {peak:.2f} GiB; "
           f"{flops / 1e12:.3f} TFLOP a step (forward + backward, from the "
           f"layer shapes), bound {bound_ms:.3f} ms at 989 TFLOP/s, "
-          f"{bound_ms / step_ms:.1%} of it, {flops / step_ms / 1e9:.1f} "
-          f"TFLOP/s [{card}]")
+          f"{bound_ms / graph_ms:.1%} of it (graph route), "
+          f"{flops / graph_ms / 1e9:.1f} TFLOP/s [{card}]")
+    for name, br in (("graph", gtrace), ("eager", etrace)):
+        print(f"trace: 5 flagship train steps, {name} route (batch "
+              f"{cfg.batch_size}, bf16): window {br['window_ms']:.3f} ms "
+              f"({br['window_ms'] / 5:.3f} ms a step), device busy "
+              f"{br['busy_ms']:.3f} ms = {br['busy_share']:.1%} of the "
+              f"window ({br['device_events']} device events, "
+              f"{br['kernel_ms_sum']:.3f} ms summed) [{card}]")
+        for name_, k, ms_ in br["top"][:5]:
+            print(f"  trace top op ({name} route): {ms_:.3f} ms "
+                  f"({ms_ / br['busy_ms']:.1%} of busy) in {k} calls: "
+                  f"{name_}")
 
 
 def chunks(n: int, chunk: int = 128) -> int:
@@ -2645,9 +2776,7 @@ def phase_rest_path(card: str) -> dict:
         a (1, 1) data x model mesh within 1e-5 of it in float32, and
         ``PerceptualEncoder(mesh=...)`` at the SD first stage's published
         widths bit-identical to the encoder without one on 8 frames; the
-        group is torn down before the phase returns;
-      * a ``trace`` of 5 fused flagship train steps (batch 32): the device's
-        busy share of the traced window and its 10 costliest ops.
+        group is torn down before the phase returns.
 
     Its kernel launches (the parallel runs' probes and encode) go to the
     kernels line."""
@@ -2675,7 +2804,6 @@ def phase_rest_path(card: str) -> dict:
     from svtpu_torch.training import ema
     from svtpu_torch.training import trainer as trainer_mod
     from svtpu_torch.training.trainer import Trainer
-    from svtpu_torch.utils import profiling
     from svtpu_torch.utils.env_check import environment_report
 
     t_phase = time.perf_counter()
@@ -2755,14 +2883,14 @@ def phase_rest_path(card: str) -> dict:
                  str(d / "frames")]
         sweep = sweep_argv(d / "frames", d / "sweep")
         steps = [0]
-        step = Trainer._train_step
+        step = Trainer._step
 
         def counted_step(self, *a, **k):
             steps[0] += 1
             return step(self, *a, **k)
 
         runs = {}
-        trainer_mod.Trainer._train_step = counted_step
+        trainer_mod.Trainer._step = counted_step
         try:
             for what, argv in (
                     ("sweep", sweep),
@@ -2780,7 +2908,7 @@ def phase_rest_path(card: str) -> dict:
                 runs[what] = (buf.getvalue(), time.perf_counter() - t0,
                               launches(), steps[0])
         finally:
-            trainer_mod.Trainer._train_step = step
+            trainer_mod.Trainer._step = step
         out, wall, got, n_steps = runs["sweep"]
         res = json.loads((d / "sweep" / "sweep_results.json").read_text())
         secs = [float(m) for m in re.findall(r" in ([0-9.]+)s$", out, re.M)]
@@ -2925,32 +3053,9 @@ def phase_rest_path(card: str) -> dict:
     print("distributed: one rank here; more ranks, one a card, in "
           "phase_multi_card (the 2- and 4-rank semantics also in the CPU "
           "tests, tests/test_torch_parallel.py, gloo)")
-
-    # 6. A trace of 5 fused flagship train steps.
-    tr = Trainer(mcfg, tcfg, store, splits, meta.flags, device="cuda")
-    st = tr.init_state()
-    idx = tr._upload_epoch(0)
-    for i in range(3):
-        tr._train_step(st, idx[i % len(idx)])
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace(tmp):
-            for i in range(5):
-                tr._train_step(st, idx[i % len(idx)])
-            torch.cuda.synchronize()
-        br = trace_breakdown(Path(tmp), 5)
-    print(f"trace: 5 fused flagship train steps (batch {tcfg.batch_size}, "
-          f"bf16): window {br['window_ms']:.3f} ms "
-          f"({br['window_ms'] / 5:.3f} ms a step), device busy "
-          f"{br['busy_ms']:.3f} ms = {br['busy_share']:.1%} of the window "
-          f"({br['device_events']} device events, {br['kernel_ms_sum']:.3f} "
-          f"ms summed) [{card}]")
-    for name_, n, ms_ in br["top"]:
-        print(f"  trace top op: {ms_:.3f} ms ({ms_ / br['busy_ms']:.1%} of "
-              f"busy) in {n} calls: {name_}")
     print(f"rest path: all checks passed in "
           f"{time.perf_counter() - t_phase:.1f} s; launches {total} [{card}]")
-    return {"launches": total, "trace": br}
+    return {"launches": total}
 
 
 def kernel_counters() -> dict:
@@ -3031,23 +3136,195 @@ class Torchrun:
         self.err.close()
 
 
-def flagship_step_ms(tr, steps: int = 12):
-    """The median CUDA-event time of a fused flagship train step (after 2),
-    over steps of epoch 0; every rank of ``tr``'s mesh steps with it."""
+def flagship_step_ms(tr, steps: int = 12, graphed: bool = True):
+    """The median CUDA-event time of a flagship train step (after 2) of a
+    fresh state on the graph route (replays, after the warm-up steps and
+    the capture) or the eager route, over steps of epoch 0; every rank of
+    ``tr``'s mesh steps with it. Returns it and the state."""
+    tr._graphed = graphed
     st = tr.init_state()
     idx = tr._upload_epoch(0)
     for i in range(3):
-        tr._train_step(st, idx[i % len(idx)])
+        tr._step(st, idx[i % len(idx)])
     times = []
     for i in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        tr._train_step(st, idx[i % len(idx)])
+        tr._step(st, idx[i % len(idx)])
         end.record()
         times.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in times[2:]), st
+
+
+def trace_steps(tr, st, n: int = 5) -> dict:
+    """``trace_breakdown`` of ``n`` more train steps of ``st`` on ``tr``'s
+    route, over steps of epoch 0 (the device's busy share of the window)."""
+    import tempfile
+
+    from svtpu_torch.utils import profiling
+
+    idx = tr._upload_epoch(0)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for i in range(n):
+                tr._step(st, idx[i % len(idx)])
+            torch.cuda.synchronize()
+        return trace_breakdown(Path(tmp), n)
+
+
+def step_graph_counts() -> dict:
+    """The step graphs captured and the steps replayed in this process."""
+    from svtpu_torch.training.step_graph import StepGraph
+
+    return {"captures": StepGraph.captures, "replays": StepGraph.replays}
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Every ``Trainer`` built inside takes the eager route on the card, its
+    Adam still capturable, so that both routes do the same arithmetic: the
+    reference the graph route is held against."""
+    from svtpu_torch.training.trainer import Trainer
+
+    init = Trainer.__init__
+
+    def eager_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self._graphed = False
+
+    Trainer.__init__ = eager_init
+    try:
+        yield
+    finally:
+        Trainer.__init__ = init
+
+
+def train_state_bits(state) -> dict:
+    """A train state's parameters and Adam state (moments and step counts),
+    on the host, by name."""
+    out = {f"param {k}": v.detach().cpu()
+           for k, v in state.model.state_dict().items()}
+    for i, s in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam {i} {k}": torch.as_tensor(v).detach().cpu()
+                    for k, v in s.items()})
+    return out
+
+
+def replay_seeds() -> list:
+    """A CUDA graph that draws twice from a persistent generator
+    (``draws.Replicas``, registered with the graph), replayed after seeding
+    it anew with 11 and then 12: for each seed, whether its offset was 0
+    before the replay and both draws equal a fresh generator's with that
+    seed (the replay's prologue reads the seed and offset the host holds)."""
+    from svtpu_torch.ops.draws import Replicas
+
+    reps = Replicas("cuda", 0)
+    gen = reps.take()
+    torch.rand(1024, generator=gen, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        first = torch.rand(1024, generator=gen, device="cuda")
+        second = torch.rand(1024, generator=gen, device="cuda")
+    out = []
+    for seed in (11, 12):
+        reps.seed(seed)
+        offset = gen.get_offset()
+        graph.replay()
+        fresh = torch.Generator("cuda").manual_seed(seed)
+        out.append({"seed": seed, "offset_before": offset,
+                    "draws_equal": torch.equal(first, torch.rand(
+                        1024, generator=fresh, device="cuda"))
+                    and torch.equal(second, torch.rand(
+                        1024, generator=fresh, device="cuda"))})
+    return out
+
+
+def adam_against_optax(tr) -> float:
+    """Two steps of ``tr``'s Adam (capturable on the card, eager) on the
+    flagship's initial parameters with seeded gradients, against optax's
+    ``adam`` (``scale_by_adam``: bias-corrected moments, ``eps`` outside
+    the root, ``eps_root`` 0; then ``-lr``) computed in float64 on the host:
+    the largest |difference| of a parameter."""
+    cfg = tr.cfg
+    st = tr.init_state()
+    params = [p for g in st.optimizer.param_groups for p in g["params"]]
+    ref = [p.detach().double().cpu() for p in params]
+    mu = [torch.zeros_like(r) for r in ref]
+    nu = [torch.zeros_like(r) for r in ref]
+    gen = torch.Generator().manual_seed(5)
+    for t in (1, 2):
+        grads = [torch.randn(p.shape, generator=gen, dtype=torch.float64)
+                 * 1e-3 for p in params]
+        for p, g in zip(params, grads):
+            p.grad = g.to(p.device, p.dtype)
+        st.optimizer.step()
+        for i, g in enumerate(grads):
+            g = g.float().double()
+            mu[i] = 0.9 * mu[i] + 0.1 * g
+            nu[i] = 0.999 * nu[i] + 0.001 * g * g
+            ref[i] -= cfg.learning_rate * (mu[i] / (1 - 0.9 ** t)) / (
+                torch.sqrt(nu[i] / (1 - 0.999 ** t)) + 1e-8)
+    return max(float((p.detach().double().cpu() - r).abs().max())
+               for p, r in zip(params, ref))
+
+
+# Raised above the flagship schedule's temperature from step 4 on (2.0,
+# then 1.992 at step 4), so the steps after it take the floor.
+ROUTE_FLOOR = 1.995
+
+
+def routes_agree(make_trainer) -> dict:
+    """One fresh state trained through the step graph and one through the
+    eager route (``make_trainer()`` builds the same trainer twice, with the
+    same initial parameters), deterministic algorithms on: two epochs one
+    step at a time (the two warm-up steps, the capture and its replay, the
+    anneal update at step 4 a replay), the floor raised to ``ROUTE_FLOOR``,
+    a staged epoch whose steps run under sync-debug "error" (replays only:
+    a capture synchronises), one more epoch one step at a time. Returns
+    whether every epoch's metrics (the staged epoch's sums on the device),
+    parameter and Adam tensor agree bit for bit, the names that differ,
+    the epochs' mean temperatures, the step graphs captured and replayed,
+    and the capture's seconds."""
+    runs = {}
+    for graphed in (True, False):
+        tr = make_trainer()
+        tr._graphed = graphed
+        st = tr.init_state()
+        c0 = step_graph_counts()
+        metrics = [tr._per_step_epoch(st, 0)[0], tr._per_step_epoch(st, 1)[0]]
+        tr._temp_floor = ROUTE_FLOOR
+        idx = tr._upload_epoch(2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            vec, temps = tr._fused_steps(st, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        metrics.append({"sums": vec.cpu(), "temperature": temps / len(idx)})
+        metrics.append(tr._per_step_epoch(st, 3)[0])
+        c1 = step_graph_counts()
+        runs[graphed] = dict(
+            metrics=metrics, bits=train_state_bits(st), steps=st.step,
+            counts={k: c1[k] - c0[k] for k in c1},
+            capture_s=st.graph.capture_s if st.graph else None)
+    g, e = runs[True], runs[False]
+    differ = sorted(k for k in e["bits"] if not torch.equal(g["bits"][k],
+                                                            e["bits"][k]))
+    same_metrics = all(
+        (torch.equal(a["sums"], b["sums"]) and a["temperature"]
+         == b["temperature"]) if "sums" in a else a == b
+        for a, b in zip(g["metrics"], e["metrics"]))
+    return {"equal": not differ and same_metrics
+            and g["bits"].keys() == e["bits"].keys(),
+            "differ": differ, "metrics_equal": same_metrics,
+            "tensors": len(e["bits"]), "steps": g["steps"],
+            "temps": [round(m["temperature"], 6) for m in g["metrics"]],
+            "graph": g["counts"], "eager": e["counts"],
+            "capture_s": g["capture_s"]}
 
 
 def embed_seconds(enc, frames: np.ndarray) -> float:
@@ -3134,6 +3411,50 @@ def import_seconds(card: str, root: Path = ROOT) -> dict:
     return out
 
 
+def capture_failure_worker() -> None:
+    """``chip_smoke.py --capture-failure``: a flagship ``Trainer`` on the
+    card whose objective reads the loss on the host (``float``), as a step
+    body must not: its warm-up steps run (eagerly, where a read is allowed)
+    and its capture must raise ``StepCaptureError``, leaving no graph and
+    the parameters and Adam state as the warm-up left them. Prints one JSON
+    line. In a process of its own: a capture that fails leaves the capture
+    stream behind."""
+    from svtpu_torch.config import TrainConfig, rbvae_variant
+    from svtpu_torch.training.step_graph import (WARMUP_STEPS,
+                                                 StepCaptureError)
+    from svtpu_torch.training.trainer import Trainer
+
+    meta, splits, ids, states = train_video()
+    tr = Trainer(rbvae_variant("contrastive", LATENT,
+                               compute_dtype="bfloat16"),
+                 TrainConfig(**FLAGSHIP_TRAIN),
+                 MemoryStore(video_frames(meta, states), ids), splits,
+                 meta.flags, device="cuda")
+    objective = tr._objective()
+
+    def reads_on_host(*args, **kwargs):
+        total, metrics = objective(*args, **kwargs)
+        float(total)
+        return total, metrics
+
+    tr._objective = lambda: reads_on_host
+    st = tr.init_state()
+    idx = tr._upload_epoch(0)
+    for i in range(WARMUP_STEPS):
+        tr._step(st, idx[i % len(idx)])
+    torch.cuda.synchronize()
+    before = train_state_bits(st)
+    raised = None
+    try:
+        tr._step(st, idx[0])
+    except StepCaptureError as e:
+        raised = str(e)
+    after = train_state_bits(st)
+    print(json.dumps({"raised": raised, "no_graph": st.graph.graph is None,
+                      "unchanged": all(torch.equal(v, after[k])
+                                       for k, v in before.items())}))
+
+
 def multi_card_worker(out_dir: str) -> None:
     """One rank of ``phase_multi_card``'s Python-API meshes (``chip_smoke.py
     --multi-card-worker DIR`` under ``torch.distributed.run``, 4 or more
@@ -3144,12 +3465,12 @@ def multi_card_worker(out_dir: str) -> None:
     the same on a (world,) data mesh and, for the trainer, a (world/2, 2)
     data x model mesh; each run's per-rank launches; two faults on the
     (world,) mesh, for the parameter limit to see; and on the (world,)
-    mesh the timings: the flagship's bf16 step at global batch 32, its
-    packed gradient all-reduce (``all_reduce_mean_``), and the SD encode of
-    16 frames. Writes ``rank<r>.json`` into ``DIR``."""
-    import contextlib
+    mesh the step graph against the eager route (``routes_agree``: bf16,
+    f32, bf16 with remat) and the timings: the flagship's bf16 step at
+    global batch 32 on both routes, the capture, a trace of 5 steps of each
+    route, its packed gradient all-reduce (``all_reduce_mean_``), and the SD
+    encode of 16 frames. Writes ``rank<r>.json`` into ``DIR``."""
     import dataclasses
-    import tempfile
 
     import torch.distributed as dist
 
@@ -3160,7 +3481,6 @@ def multi_card_worker(out_dir: str) -> None:
     from svtpu_torch.parallel.sharding import full_state_dict
     from svtpu_torch.perceptual.embed import PerceptualEncoder
     from svtpu_torch.training.trainer import Trainer
-    from svtpu_torch.utils import profiling
 
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
@@ -3294,6 +3614,16 @@ def multi_card_worker(out_dir: str) -> None:
                 "launches": launches,
                 "max_rel_err": float(np.abs(z - ref).max()
                                      / np.abs(ref).max())}
+        # The step graph against the eager route on the (world,) mesh, bit
+        # for bit on every rank (the packed all-reduce inside the graph).
+        mesh = make_mesh((world,), ("data",))
+        for name, cfg in (("bf16", dataclasses.replace(
+                mcfg, compute_dtype="bfloat16")), ("f32", mcfg),
+                ("bf16, remat", dataclasses.replace(
+                    mcfg, compute_dtype="bfloat16", remat=True))):
+            say(f"graph route vs eager route, {name}")
+            out[f"routes {name}"] = routes_agree(
+                lambda cfg=cfg: trainer(mesh, cfg))
         torch.use_deterministic_algorithms(False)
         say("timings")
         # Timings on the (world,) mesh: the CLI's flagship (bf16, svtpu's
@@ -3302,6 +3632,9 @@ def multi_card_worker(out_dir: str) -> None:
         fcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16")
         tr = Trainer(fcfg, tcfg, store, splits, meta.flags, mesh=mesh,
                      device="cuda")
+        eager_ms, est = flagship_step_ms(tr, graphed=False)
+        eager_trace = trace_steps(tr, est)
+        del est
         step_ms, st = flagship_step_ms(tr)
         grads = [p.grad for p in st.model.parameters() if p.grad is not None]
         group, n = tr._data_group, mesh.size("data")
@@ -3314,22 +3647,19 @@ def multi_card_worker(out_dir: str) -> None:
                            device=grads[0].device)
         coll_ms, coll_sp = cuda_ms(lambda: dist.all_reduce(flat, group=group),
                                    warmup=3, trials=5, iters=20)
-        # 5 more steps, traced on rank 0: does the host hold the card back
-        # at a quarter of the batch?
-        idx = tr._upload_epoch(0)
-        with tempfile.TemporaryDirectory() as tmp:
-            ctx = (profiling.trace(tmp) if rank == 0
-                   else contextlib.nullcontext())
-            with ctx:
-                for i in range(5):
-                    tr._train_step(st, idx[i % len(idx)])
-                torch.cuda.synchronize()
-            if rank == 0:
-                out["trace"] = trace_breakdown(Path(tmp), 5)
+        # 5 more steps of each route, traced on every rank: does the host
+        # hold the card back at a quarter of the batch?
+        out["trace"] = trace_steps(tr, st)
+        out["trace_eager"] = eager_trace
+        capture_s = st.graph.capture_s
+        # A graph that captured the group's all-reduce goes before the
+        # group: destroy_process_group waits for it (it hung here).
+        st.graph = None
         enc = PerceptualEncoder(weights["ae"], PerceptualConfig(),
                                 batch_size=PERCEP_BATCH, seed=3, mesh=mesh)
         out["timing"] = {
-            "step_ms": step_ms, "local_batch": tr._hi - tr._lo,
+            "step_ms": step_ms, "eager_step_ms": eager_ms,
+            "capture_s": capture_s, "local_batch": tr._hi - tr._lo,
             "grad_bytes": sum(g.numel() * g.element_size() for g in grads),
             "allreduce_ms": ar_ms, "allreduce_spread": ar_sp,
             "collective_ms": coll_ms, "collective_spread": coll_sp,
@@ -3339,6 +3669,169 @@ def multi_card_worker(out_dir: str) -> None:
         torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def multi_card_meshes(card: str, world: int, world1: dict) -> dict:
+    """(b) of ``phase_multi_card``, at four cards or more: the mesh
+    worker (``chip_smoke.py --multi-card-worker``) under
+    ``torch.distributed.run`` at ``world``, its results held and printed
+    beside ``world1`` (this card's ``step_ms``, ``eager_step_ms`` and
+    ``embed_s``). Returns every rank's launches and the world-N step on
+    both routes and embed rate."""
+    import tempfile
+
+    from svtpu_torch.training.step_graph import WARMUP_STEPS
+
+    counters = kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    step_ms, eager_ms = world1["step_ms"], world1["eager_step_ms"]
+    embed_s = world1["embed_s"]
+    frames_step = FLAGSHIP_TRAIN["batch_size"] * 2 * 5
+    torch.cuda.empty_cache()   # rank 0 shares this card
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out, err, wall = Torchrun(world, [
+            ROOT / "chip_smoke.py", "--multi-card-worker", tmp],
+            Path(tmp), NCCL_DEBUG="INFO").wait(timeout=600)
+        require(rc == 0, f"multi card (b): the worker failed (exit "
+                f"{rc}):\n{out[-3000:]}\n{err[-4000:]}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    def worst(key, err="max_rel_err"):
+        r = max(ranks, key=lambda r: r[key][err])[key]
+        tensor = {"max_rel_err": "worst", "grad_rel_err": "grad_worst"}
+        return f"{r[err]:.3e}" + (
+            f" ({r[tensor[err]]}"
+            + (f": max |diff| {r['worst_abs']:.3e}, max |value| "
+               f"{r['worst_max']:.3e}" if err == "max_rel_err" else "")
+            + ")" if tensor[err] in r else "")
+
+    r0 = ranks[0]
+    print(f"check multi card (b), {world} ranks over NCCL ({wall:.1f} s "
+          f"with start-up): flagship Trainer f32, both kernels, against "
+          f"the run without a mesh, max error / its tensor's max over "
+          f"the ranks: one step's gradients after the all-reduce in f64 "
+          f"compute ({world},) {worst('trainer data', 'grad_rel_err')}, "
+          f"({world // 2}, 2) "
+          f"{worst('trainer data x model', 'grad_rel_err')} (limit "
+          f"1e-5; encoder_cnn.fc placements "
+          f"{r0['trainer data x model']['fc_placements']}); the "
+          f"parameters after 2 fused epochs in f32 ({world},) "
+          f"{worst('trainer data')}, ({world // 2}, 2) "
+          f"{worst('trainer data x model')} (limit {F32_PARAM_LIMIT:g}: "
+          f"Adam's first steps carry the f32 reordering of small "
+          f"gradients, PERF.md §6); "
+          f"per-rank launches "
+          f"{[r['trainer data']['launches'] for r in ranks]}, "
+          f"{[r['trainer data x model']['launches'] for r in ranks]}, "
+          f"the runs without a mesh "
+          f"{[r['reference_launches'] for r in ranks]}; "
+          f"PerceptualEncoder ({world},) on {PERCEP_BATCH} frames "
+          f"({PERCEP_BATCH // world} a rank): bf16 stochastic "
+          f"{worst('encoder bf16 stochastic')} (limit 2e-2), f32 "
+          f"deterministic {worst('encoder f32 deterministic')} (limit "
+          f"1e-5); encode launches per rank "
+          f"{[r['encoder bf16 stochastic']['launches'] for r in ranks]}"
+          f" [{card}]")
+    faults = {k: min(r["faults"][k] for r in ranks) for k in r0["faults"]}
+    print(f"check multi card (b): the parameter limit against two faults "
+          f"on the ({world},) mesh, f32, smallest over the ranks: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+          + f" (each must pass the f32 limit {F32_PARAM_LIMIT:g}) [{card}]")
+    require(all(v > F32_PARAM_LIMIT for v in faults.values()),
+            f"multi card (b): the f32 parameter limit {F32_PARAM_LIMIT} "
+            f"does not see a fault: {faults}")
+    require([r["device"] for r in ranks]
+            == [str(r) for r in range(world)],
+            f"multi card (b): the ranks' cards "
+            f"{[r['device'] for r in ranks]}")
+    require(r0["trainer data x model"]["fc_placements"] == "(Shard(dim=1),)",
+            "multi card (b): the (n/2, 2) mesh did not shard the fc")
+    via = sorted(set(re.findall(r" via (\S+)", out)))
+    for name in ("bf16", "f32", "bf16, remat"):
+        got = [r[f"routes {name}"] for r in ranks]
+        print(f"check multi card (b): graph route vs eager route on the "
+              f"({world},) mesh, flagship {name}, {got[0]['steps']} "
+              f"steps from the same state (epochs' mean temperature "
+              f"{got[0]['temps']}), rank by rank: bit for bit "
+              f"{[g['equal'] for g in got]}, differing "
+              f"{[g['differ'][:3] for g in got]}; step graphs "
+              f"{[g['graph'] for g in got]}; captures "
+              f"{[round(g['capture_s'], 3) for g in got]} s [{card}]")
+        require(all(g["equal"] and g["graph"] == {
+            "captures": 1, "replays": g["steps"] - WARMUP_STEPS}
+            for g in got), f"multi card (b): graph route vs eager route "
+            f"({name}) on the ({world},) mesh: {got}")
+    for key, route in (("trace", "graph"), ("trace_eager", "eager")):
+        br = r0[key]
+        print(f"multi card (b): trace of 5 flagship steps at world "
+              f"{world} on rank 0, {route} route: window "
+              f"{br['window_ms']:.3f} ms, device busy "
+              f"{br['busy_ms']:.3f} ms = {br['busy_share']:.1%}; busy "
+              f"share rank by rank "
+              f"{[round(r[key]['busy_share'], 4) for r in ranks]}; top "
+              f"ops {[(n, round(ms, 3)) for n, _, ms in br['top'][:5]]}"
+              f" [{card}]")
+    print(f"multi card (b): NCCL's transports between the cards "
+          f"(NCCL_DEBUG=INFO): {via or 'not reported'} [{card}]")
+    tm = r0["timing"]
+    gbps = nvlink_gbps()
+    moved = 2 * (world - 1) / world * tm["grad_bytes"]
+    bound = (f"{moved / (gbps * 1e9) * 1e3:.4f} ms ({moved / 1e6:.2f} MB "
+             f"over {gbps:.1f} GB/s, card 0's NVLink links summed)"
+             if gbps else "not measured (nvidia-smi lists no NVLink)")
+    print(f"time: multi card world {world}: flagship train step, global "
+          f"batch {FLAGSHIP_TRAIN['batch_size']} ({tm['local_batch']} a "
+          f"card), bf16, rank 0's CUDA events: graph route "
+          f"{tm['step_ms']:.3f} ms, "
+          f"{frames_step / tm['step_ms'] * 1e3:.1f} train frames/s "
+          f"({step_ms / tm['step_ms']:.2f}x world 1's {step_ms:.3f} ms), "
+          f"capture {tm['capture_s']:.3f} s; eager route "
+          f"{tm['eager_step_ms']:.3f} ms ({eager_ms / tm['eager_step_ms']:.2f}"
+          f"x world 1's {eager_ms:.3f} ms); "
+          f"its packed gradient all-reduce (all_reduce_mean_, "
+          f"{tm['grad_bytes'] / 1e6:.2f} MB f32): {tm['allreduce_ms']:.4f}"
+          f" ms (spread {tm['allreduce_spread']:.3f}), "
+          f"{tm['allreduce_ms'] / tm['step_ms']:.1%} of the step, bound "
+          f"{bound}; of it the collective alone (dist.all_reduce of "
+          f"the packed size) {tm['collective_ms']:.4f} ms (spread "
+          f"{tm['collective_spread']:.3f}), "
+          f"{tm['collective_ms'] / tm['allreduce_ms']:.1%}, the packing "
+          f"(cat, divide, copy_ back) the rest; embed of "
+          f"{2 * PERCEP_BATCH} frames: "
+          f"{tm['embed_s']:.3f} s, {2 * PERCEP_BATCH / tm['embed_s']:.2f} "
+          f"frames/s (world 1: {PERCEP_FRAMES / embed_s:.2f}) [{card}]")
+    for r in ranks:
+        ref = r["reference_launches"]
+        require(ref["fused_conv01"] > 0
+                and ref["lstm_binary_concrete"] > 0,
+                "multi card (b): the reference probes ran no kernel")
+        for name in ("data", "data x model"):
+            t = r[f"trainer {name}"]
+            require(t["parallel"] and t["launches"] == ref,
+                    f"multi card (b): rank {r['rank']} trainer {name}: "
+                    f"launches {t['launches']}, expected {ref}")
+            require(t["max_rel_err"] <= F32_PARAM_LIMIT, f"multi card "
+                    f"(b): rank {r['rank']} trainer {name}: parameters "
+                    f"{t['max_rel_err']} ({t['worst']})")
+            require(t["grad_rel_err"] <= 1e-5, f"multi card (b): rank "
+                    f"{r['rank']} trainer {name}: gradients "
+                    f"{t['grad_rel_err']} ({t['grad_worst']}); above "
+                    f"1e-6: {t['grad_errs']}")
+            total = add_counts(total, t["launches"])
+        for name, limit in (("bf16 stochastic", 2e-2),
+                            ("f32 deterministic", 1e-5)):
+            e = r[f"encoder {name}"]
+            want = dict.fromkeys(counters, 0)
+            want["flash_attention"] = 1
+            require(e["launches"] == want, f"multi card (b): rank "
+                    f"{r['rank']} encoder {name}: launches "
+                    f"{e['launches']}")
+            require(e["max_rel_err"] <= limit, f"multi card (b): rank "
+                    f"{r['rank']} encoder {name}: {e['max_rel_err']}")
+            total = add_counts(total, e["launches"])
+    return {"launches": total, "step_ms": tm["step_ms"],
+            "eager_step_ms": tm["eager_step_ms"],
+            "embed_fps": 2 * PERCEP_BATCH / tm["embed_s"]}
 
 
 def phase_multi_card(card: str) -> dict:
@@ -3369,7 +3862,11 @@ def phase_multi_card(card: str) -> dict:
           equal key for key at every world. One set of files a command;
           rank 0 alone prints; each rank's launches exact (``flash_attention``
           once an SD batch, every other kernel 0); the launcher's exit code
-          0, which it gives only when every rank exited 0. First, the
+          0, which it gives only when every rank exited 0. The launched
+          trains run on the graph route (each rank's step graphs exact:
+          one capture, a replay a step after the warm-up ones), the
+          commands without a launcher on the eager route (``eager_steps``),
+          so that at world 1 the two routes meet bit for bit. First, the
           start-up a rank pays: ``import svtpu_torch.cli`` in a fresh
           process (``import_seconds``), which must not load
           ``torch.distributed.tensor``.
@@ -3380,6 +3877,8 @@ def phase_multi_card(card: str) -> dict:
           their parameters within ``F32_PARAM_LIMIT``, and two faults on
           the (world,) mesh (the last rank's gradients dropped from the
           all-reduce; the learning rate times the world) beyond it;
+          the step graph against the eager route on the (world,) mesh, bit
+          for bit on every rank (``routes_agree``: bf16, f32, remat);
           ``PerceptualEncoder`` on a (world,)
           mesh within 2e-2 (bf16) and 1e-5 (f32) of the latents' max; each
           rank's launches exact: the trainers' probes launch
@@ -3407,7 +3906,9 @@ def phase_multi_card(card: str) -> dict:
     from svtpu_torch.perceptual.convert import PREFIX
     from svtpu_torch.perceptual.embed import (PerceptualEncoder,
                                               load_frame_pm1)
+    from svtpu_torch.data.datasets import PairBatcher
     from svtpu_torch.training.checkpoints import BestCheckpointer
+    from svtpu_torch.training.step_graph import WARMUP_STEPS
     from svtpu_torch.training.trainer import Trainer
 
     t_phase = time.perf_counter()
@@ -3511,44 +4012,61 @@ def phase_multi_card(card: str) -> dict:
                 cli.main([str(a) for a in argv])
             torch.cuda.synchronize()
 
+        # A train launch: 2 epochs of global batch 32 on the graph route.
+        train_steps = 2 * PairBatcher(
+            MemoryStore(frames, ids), splits.train,
+            FLAGSHIP_TRAIN["batch_size"]).num_batches()
+
+        def want_graphs(kind):
+            if not kind.startswith("train"):
+                return {"captures": 0, "replays": 0}
+            return {"captures": 1, "replays": train_steps - WARMUP_STEPS}
+
         t_a = time.perf_counter()
         launched = {k: launch(k) for k in list(runs)[:1]}
-        walls, rank_launches = {}, {}
+        walls, rank_launches, rank_graphs = {}, {}, {}
         try:
             # The commands without a launcher, in this process meanwhile,
             # under PyTorch's TF32 defaults, as the launched ranks have them.
             torch.backends.cudnn.allow_tf32 = True
             torch.backends.cuda.matmul.allow_tf32 = False
+            graphs_before = step_graph_counts()
             try:
-                # First the percep-flagship checkpoint that both
-                # eval-consistency runs read, on latents made here, as
-                # phase_cli_path makes its own.
-                np.save(d / "latents.npy", percep_latents(ids, states))
-                zero_counts(counters)
-                quiet_cli(["train", "--preset", "percep-flagship", "--video",
-                           "chinese_chess", "--embeddings",
-                           d / "latents.npy", "--epochs", 1, "--save-path",
-                           pckpt])
-                got = read_counts(counters)
-                require(not any(got.values()), f"multi card: train "
-                        f"--preset percep-flagship: launches {got}, "
-                        f"expected none")
-                for kind, argv in runs.items():
-                    if deterministic(kind):
-                        os.environ["SVTPU_DETERMINISTIC"] = "1"
-                    else:
-                        os.environ.pop("SVTPU_DETERMINISTIC", None)
-                        torch.use_deterministic_algorithms(False)
+                # On the eager route (its Adam capturable): the launched
+                # runs take the graph.
+                with eager_steps():
+                    # First the percep-flagship checkpoint that both
+                    # eval-consistency runs read, on latents made here, as
+                    # phase_cli_path makes its own.
+                    np.save(d / "latents.npy", percep_latents(ids, states))
                     zero_counts(counters)
-                    quiet_cli(argv(ref_dir))
+                    quiet_cli(["train", "--preset", "percep-flagship",
+                               "--video", "chinese_chess", "--embeddings",
+                               d / "latents.npy", "--epochs", 1,
+                               "--save-path", pckpt])
                     got = read_counts(counters)
-                    total = add_counts(total, got)
-                    require(got == want(kind), f"multi card: {kind} without "
-                            f"a launcher: launches {got}, expected "
-                            f"{want(kind)}")
+                    require(not any(got.values()), f"multi card: train "
+                            f"--preset percep-flagship: launches {got}, "
+                            f"expected none")
+                    for kind, argv in runs.items():
+                        if deterministic(kind):
+                            os.environ["SVTPU_DETERMINISTIC"] = "1"
+                        else:
+                            os.environ.pop("SVTPU_DETERMINISTIC", None)
+                            torch.use_deterministic_algorithms(False)
+                        zero_counts(counters)
+                        quiet_cli(argv(ref_dir))
+                        got = read_counts(counters)
+                        total = add_counts(total, got)
+                        require(got == want(kind), f"multi card: {kind} "
+                                f"without a launcher: launches {got}, "
+                                f"expected {want(kind)}")
             finally:
                 os.environ.pop("SVTPU_DETERMINISTIC", None)
                 torch.use_deterministic_algorithms(False)
+            require(step_graph_counts() == graphs_before, f"multi card: the "
+                    f"commands without a launcher replayed step graphs: "
+                    f"{step_graph_counts()}, before {graphs_before}")
             torch.cuda.empty_cache()   # the next launches share this card
             names = {fn.__name__: k for k, fn in counters.items()}
             for kind in runs:
@@ -3579,6 +4097,12 @@ def phase_multi_card(card: str) -> dict:
                             == want(kind)["flash_attention"] for r in ranks),
                         f"multi card: {kind}: attention not on the D = 512 "
                         f"kernel: {ranks}")
+                rank_graphs[kind] = [r["step_graphs"] for r in ranks]
+                require(kind == "sweep" or all(
+                    g == want_graphs(kind) for g in rank_graphs[kind]),
+                    f"multi card: {kind}: the ranks' step graphs "
+                    f"{rank_graphs[kind]}, expected {want_graphs(kind)} on "
+                    f"each")
                 for c in rank_launches[kind]:
                     total = add_counts(total, c)
         finally:
@@ -3624,6 +4148,13 @@ def phase_multi_card(card: str) -> dict:
               f"checkpoint directory a train run, one .npy an embed, one "
               f"sweep directory {sweep_files}, one results directory "
               f"{files(run_dir / 'consistency')} [{card}]")
+        print(f"multi card (a): each rank's step graphs (captures, replays), "
+              f"command by command: "
+              f"{ {k: [(g['captures'], g['replays']) for g in v] for k, v in rank_graphs.items()} }"
+              f" (a train: {want_graphs('train')} on each rank, its "
+              f"{train_steps} steps after {WARMUP_STEPS} eager warm-up "
+              f"steps; the commands without a launcher none, on the eager "
+              f"route) [{card}]")
         errs, exact, finite, worst = {}, {}, True, {}
         for kind in train_kinds:
             got, _ = BestCheckpointer(run_dir / kind).restore("latest")
@@ -3731,6 +4262,7 @@ def phase_multi_card(card: str) -> dict:
     mcfg = rbvae_variant("contrastive", LATENT, compute_dtype="bfloat16")
     tr = Trainer(mcfg, TrainConfig(**FLAGSHIP_TRAIN),
                  MemoryStore(frames, ids), splits, meta.flags, device="cuda")
+    eager_ms, st = flagship_step_ms(tr, graphed=False)
     step_ms, st = flagship_step_ms(tr)
     del tr, st
     enc = PerceptualEncoder(weights["ae"], pcfg, batch_size=PERCEP_BATCH,
@@ -3745,15 +4277,16 @@ def phase_multi_card(card: str) -> dict:
                      4 * q.numel() * 2 / PEAK_BYTES) * 1e3
     frames_step = FLAGSHIP_TRAIN["batch_size"] * 2 * 5
     print(f"time: multi card world 1 (this card): flagship train step, "
-          f"global batch {FLAGSHIP_TRAIN['batch_size']}, bf16: "
+          f"global batch {FLAGSHIP_TRAIN['batch_size']}, bf16: graph route "
           f"{step_ms:.3f} ms, {frames_step / step_ms * 1e3:.1f} train "
-          f"frames/s; embed (SD encode, bf16, batches of {PERCEP_BATCH}) of "
+          f"frames/s; eager route {eager_ms:.3f} ms; embed (SD encode, bf16, batches of {PERCEP_BATCH}) of "
           f"{PERCEP_FRAMES} frames at 1280x704: {embed_s:.3f} s, "
           f"{PERCEP_FRAMES / embed_s:.2f} frames/s; flash_attention bf16 "
           f"[{PERCEP_BATCH // 4},{N},{D}] (a rank's share of a batch of "
           f"{PERCEP_BATCH} at world 4): {attn_ms:.3f} ms (spread "
           f"{attn_sp:.3f}), bound {attn_bound:.3f} ms [{card}]")
     result = {"world": world, "step_ms": {1: step_ms},
+              "eager_step_ms": {1: eager_ms},
               "embed_fps": {1: PERCEP_FRAMES / embed_s},
               "attn_ms_b2": attn_ms}
 
@@ -3763,127 +4296,13 @@ def phase_multi_card(card: str) -> dict:
               f"not run on this machine (world {world}), and nothing is "
               f"claimed for them")
     else:
-        torch.cuda.empty_cache()   # rank 0 shares this card
-        with tempfile.TemporaryDirectory() as tmp:
-            rc, out, err, wall = Torchrun(world, [
-                ROOT / "chip_smoke.py", "--multi-card-worker", tmp],
-                Path(tmp), NCCL_DEBUG="INFO").wait(timeout=600)
-            require(rc == 0, f"multi card (b): the worker failed (exit "
-                    f"{rc}):\n{out[-3000:]}\n{err[-4000:]}")
-            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-                     for r in range(world)]
-        def worst(key, err="max_rel_err"):
-            r = max(ranks, key=lambda r: r[key][err])[key]
-            tensor = {"max_rel_err": "worst", "grad_rel_err": "grad_worst"}
-            return f"{r[err]:.3e}" + (
-                f" ({r[tensor[err]]}"
-                + (f": max |diff| {r['worst_abs']:.3e}, max |value| "
-                   f"{r['worst_max']:.3e}" if err == "max_rel_err" else "")
-                + ")" if tensor[err] in r else "")
-
-        r0 = ranks[0]
-        print(f"check multi card (b), {world} ranks over NCCL ({wall:.1f} s "
-              f"with start-up): flagship Trainer f32, both kernels, against "
-              f"the run without a mesh, max error / its tensor's max over "
-              f"the ranks: one step's gradients after the all-reduce in f64 "
-              f"compute ({world},) {worst('trainer data', 'grad_rel_err')}, "
-              f"({world // 2}, 2) "
-              f"{worst('trainer data x model', 'grad_rel_err')} (limit "
-              f"1e-5; encoder_cnn.fc placements "
-              f"{r0['trainer data x model']['fc_placements']}); the "
-              f"parameters after 2 fused epochs in f32 ({world},) "
-              f"{worst('trainer data')}, ({world // 2}, 2) "
-              f"{worst('trainer data x model')} (limit {F32_PARAM_LIMIT:g}: "
-              f"Adam's first steps carry the f32 reordering of small "
-              f"gradients, PERF.md §6); "
-              f"per-rank launches "
-              f"{[r['trainer data']['launches'] for r in ranks]}, "
-              f"{[r['trainer data x model']['launches'] for r in ranks]}, "
-              f"the runs without a mesh "
-              f"{[r['reference_launches'] for r in ranks]}; "
-              f"PerceptualEncoder ({world},) on {PERCEP_BATCH} frames "
-              f"({PERCEP_BATCH // world} a rank): bf16 stochastic "
-              f"{worst('encoder bf16 stochastic')} (limit 2e-2), f32 "
-              f"deterministic {worst('encoder f32 deterministic')} (limit "
-              f"1e-5); encode launches per rank "
-              f"{[r['encoder bf16 stochastic']['launches'] for r in ranks]}"
-              f" [{card}]")
-        faults = {k: min(r["faults"][k] for r in ranks) for k in r0["faults"]}
-        print(f"check multi card (b): the parameter limit against two faults "
-              f"on the ({world},) mesh, f32, smallest over the ranks: "
-              + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
-              + f" (each must pass the f32 limit {F32_PARAM_LIMIT:g}) [{card}]")
-        require(all(v > F32_PARAM_LIMIT for v in faults.values()),
-                f"multi card (b): the f32 parameter limit {F32_PARAM_LIMIT} "
-                f"does not see a fault: {faults}")
-        require([r["device"] for r in ranks]
-                == [str(r) for r in range(world)],
-                f"multi card (b): the ranks' cards "
-                f"{[r['device'] for r in ranks]}")
-        require(r0["trainer data x model"]["fc_placements"] == "(Shard(dim=1),)",
-                "multi card (b): the (n/2, 2) mesh did not shard the fc")
-        via = sorted(set(re.findall(r" via (\S+)", out)))
-        br = r0["trace"]
-        print(f"multi card (b): NCCL's transports between the cards "
-              f"(NCCL_DEBUG=INFO): {via or 'not reported'}; trace of 5 "
-              f"flagship steps at world {world} on rank 0: window "
-              f"{br['window_ms']:.3f} ms, device busy {br['busy_ms']:.3f} ms "
-              f"= {br['busy_share']:.1%}; top ops "
-              f"{[(n, round(ms, 3)) for n, _, ms in br['top'][:5]]} [{card}]")
-        tm = r0["timing"]
-        gbps = nvlink_gbps()
-        moved = 2 * (world - 1) / world * tm["grad_bytes"]
-        bound = (f"{moved / (gbps * 1e9) * 1e3:.4f} ms ({moved / 1e6:.2f} MB "
-                 f"over {gbps:.1f} GB/s, card 0's NVLink links summed)"
-                 if gbps else "not measured (nvidia-smi lists no NVLink)")
-        print(f"time: multi card world {world}: flagship train step, global "
-              f"batch {FLAGSHIP_TRAIN['batch_size']} ({tm['local_batch']} a "
-              f"card), bf16, rank 0's CUDA events: {tm['step_ms']:.3f} ms, "
-              f"{frames_step / tm['step_ms'] * 1e3:.1f} train frames/s "
-              f"({step_ms / tm['step_ms']:.2f}x world 1's {step_ms:.3f} ms); "
-              f"its packed gradient all-reduce (all_reduce_mean_, "
-              f"{tm['grad_bytes'] / 1e6:.2f} MB f32): {tm['allreduce_ms']:.4f}"
-              f" ms (spread {tm['allreduce_spread']:.3f}), "
-              f"{tm['allreduce_ms'] / tm['step_ms']:.1%} of the step, bound "
-              f"{bound}; of it the collective alone (dist.all_reduce of "
-              f"the packed size) {tm['collective_ms']:.4f} ms (spread "
-              f"{tm['collective_spread']:.3f}), "
-              f"{tm['collective_ms'] / tm['allreduce_ms']:.1%}, the packing "
-              f"(cat, divide, copy_ back) the rest; embed of "
-              f"{2 * PERCEP_BATCH} frames: "
-              f"{tm['embed_s']:.3f} s, {2 * PERCEP_BATCH / tm['embed_s']:.2f} "
-              f"frames/s (world 1: {PERCEP_FRAMES / embed_s:.2f}) [{card}]")
-        for r in ranks:
-            ref = r["reference_launches"]
-            require(ref["fused_conv01"] > 0
-                    and ref["lstm_binary_concrete"] > 0,
-                    "multi card (b): the reference probes ran no kernel")
-            for name in ("data", "data x model"):
-                t = r[f"trainer {name}"]
-                require(t["parallel"] and t["launches"] == ref,
-                        f"multi card (b): rank {r['rank']} trainer {name}: "
-                        f"launches {t['launches']}, expected {ref}")
-                require(t["max_rel_err"] <= F32_PARAM_LIMIT, f"multi card "
-                        f"(b): rank {r['rank']} trainer {name}: parameters "
-                        f"{t['max_rel_err']} ({t['worst']})")
-                require(t["grad_rel_err"] <= 1e-5, f"multi card (b): rank "
-                        f"{r['rank']} trainer {name}: gradients "
-                        f"{t['grad_rel_err']} ({t['grad_worst']}); above "
-                        f"1e-6: {t['grad_errs']}")
-                total = add_counts(total, t["launches"])
-            for name, limit in (("bf16 stochastic", 2e-2),
-                                ("f32 deterministic", 1e-5)):
-                e = r[f"encoder {name}"]
-                want = dict.fromkeys(counters, 0)
-                want["flash_attention"] = 1
-                require(e["launches"] == want, f"multi card (b): rank "
-                        f"{r['rank']} encoder {name}: launches "
-                        f"{e['launches']}")
-                require(e["max_rel_err"] <= limit, f"multi card (b): rank "
-                        f"{r['rank']} encoder {name}: {e['max_rel_err']}")
-                total = add_counts(total, e["launches"])
-        result["step_ms"][world] = tm["step_ms"]
-        result["embed_fps"][world] = 2 * PERCEP_BATCH / tm["embed_s"]
+        mesh = multi_card_meshes(card, world, {
+            "step_ms": step_ms, "eager_step_ms": eager_ms,
+            "embed_s": embed_s})
+        total = add_counts(total, mesh["launches"])
+        result["step_ms"][world] = mesh["step_ms"]
+        result["eager_step_ms"][world] = mesh["eager_step_ms"]
+        result["embed_fps"][world] = mesh["embed_fps"]
     result["launches"] = total
     print(f"multi card: all checks passed in "
           f"{time.perf_counter() - t_phase:.1f} s; launches {total} [{card}]")
@@ -4190,5 +4609,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multi-card-worker"]:
         multi_card_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--capture-failure"]:
+        capture_failure_worker()
     else:
         main()

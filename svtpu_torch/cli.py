@@ -38,7 +38,8 @@ return at once. Without a launcher a command is one process on one card.
 ``SVTPU_DETERMINISTIC=1`` in the environment makes a command use PyTorch's
 deterministic algorithms, so that two runs of it give the same bits.
 ``SVTPU_LAUNCHES_DIR=D`` makes each rank write its hand kernels' launches
-in the command to ``D/launches_<rank>.json``.
+and its train step graphs' captures and replays in the command to
+``D/launches_<rank>.json``.
 
 Run: ``python -m svtpu_torch.cli <command> --help``.
 """
@@ -791,12 +792,14 @@ def _quiet_unless_main():
 def _write_launches(directory) -> None:
     """This rank's kernel launches as ``launches_<rank>.json`` under
     ``directory``: each kernel wrapper's ``.launches`` since the process
-    started (a launched command's own) and ``flash_attention``'s by kernel,
-    for a caller that cannot read the counts of another process."""
+    started (a launched command's own), ``flash_attention``'s by kernel, and
+    the train step graphs captured and replayed, for a caller that cannot
+    read the counts of another process."""
     from svtpu_torch.ops.attention import flash_attention
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
     from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.training.step_graph import StepGraph
 
     counts = {fn.__name__: fn.launches for fn in (
         fused_conv01, lstm_binary_concrete, binary_concrete_fused,
@@ -805,8 +808,9 @@ def _write_launches(directory) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps({
         "launches": counts,
-        "flash_attention_by_kernel": dict(flash_attention.launches_by_kernel)
-    }))
+        "flash_attention_by_kernel": dict(flash_attention.launches_by_kernel),
+        "step_graphs": {"captures": StepGraph.captures,
+                        "replays": StepGraph.replays}}))
 
 
 def main(argv=None):

@@ -36,13 +36,15 @@ Randomness is explicit: Binary-Concrete noise comes from a
 ``torch.Generator`` (or an injected uniform ``u``), dropout masks from
 generators seeded by a host int (``dropout_seed``) inside the conv stacks,
 so that a recompute under ``remat`` draws the same masks (checkpointing
-restores only the global generators' states), and the initial weights from
-the generator given to the constructor.
+restores only the global generators' states), or from the trainer's
+persistent generators (``draws.Replicas``: the recompute takes a replica
+of its own, seeded alike), and the initial weights from the generator given
+to the constructor.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -58,6 +60,11 @@ from svtpu_torch.ops.conv import (Conv2dTorch, ConvTranspose2dTorch, Dense,
 from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
 from svtpu_torch.ops.lstm import LSTM
 from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete, takes
+
+
+# A pass's dropout masks: a host int that seeds them, or the train step's
+# persistent generators (``_dropout_generator``); ``None`` for no dropout.
+DropoutSeed = Optional[Union[int, Sequence[draws.Replicas]]]
 
 
 class RBVAEOutput(NamedTuple):
@@ -78,16 +85,22 @@ def _dropout(h: torch.Tensor, rate: float,
     return torch.where(mask, h / keep, 0.0)
 
 
-def _dropout_generator(cfg: RBVAEConfig, dropout_seed: Optional[int],
+def _dropout_generator(cfg: RBVAEConfig, dropout_seed: DropoutSeed,
                        stage: int, device,
                        rows: Optional[draws.GlobalRows] = None):
     """The generator of one conv stack's masks (stage 0 the encoder, 1 the
     decoder), drawing at ``rows`` of the global batch where given, or
-    ``None`` for no dropout."""
+    ``None`` for no dropout. ``dropout_seed``: an int, from which each call
+    seeds a fresh generator with ``batch_seed(dropout_seed, stage)``; or a
+    train step's persistent generators, one ``draws.Replicas`` a stage,
+    seeded so by the trainer."""
     if dropout_seed is None or cfg.conv_dropout == 0:
         return None
-    gen = torch.Generator(device=device)
-    gen.manual_seed(batch_seed(dropout_seed, stage))
+    if isinstance(dropout_seed, int):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(batch_seed(dropout_seed, stage))
+    else:
+        gen = dropout_seed[stage].take()
     return draws.sharded(gen, rows)
 
 
@@ -120,7 +133,7 @@ class ConvEncoder(nn.Module):
         return [m for m in self.conv if isinstance(m, Conv2dTorch)]
 
     def forward(self, x: torch.Tensor, trunk: str = "torch",
-                dropout_seed: Optional[int] = None,
+                dropout_seed: DropoutSeed = None,
                 rows: Optional[draws.GlobalRows] = None) -> torch.Tensor:
         """``x [N, H, W, C]`` → logits ``[N, L]``: ``features``, then fc."""
         h = self.features(x, trunk, dropout_seed, rows)
@@ -131,7 +144,7 @@ class ConvEncoder(nn.Module):
                        dtype=self.cfg.torch_dtype)
 
     def features(self, x: torch.Tensor, trunk: str = "torch",
-                 dropout_seed: Optional[int] = None,
+                 dropout_seed: DropoutSeed = None,
                  rows: Optional[draws.GlobalRows] = None) -> torch.Tensor:
         """``x [N, H, W, C]`` → the conv stack's output ``[N, C', H', W']``
         in the compute dtype.
@@ -206,7 +219,7 @@ class ConvDecoder(nn.Module):
                   for i in range(len(feats))], False)
 
     def forward(self, z: torch.Tensor,
-                dropout_seed: Optional[int] = None,
+                dropout_seed: DropoutSeed = None,
                 rows: Optional[draws.GlobalRows] = None) -> torch.Tensor:
         """``z [N, L]`` → ``[N, H, W, C]``; ``dropout_seed`` and ``rows`` as
         the encoder's."""
@@ -288,7 +301,7 @@ class Seq2SeqBinaryVAE(nn.Module):
     def _encode_to_latent(self, x, temperature, hard, noise_scale,
                           generator, u, sampler: str = "torch",
                           trunk: str = "torch",
-                          dropout_seed: Optional[int] = None,
+                          dropout_seed: DropoutSeed = None,
                           rows: Optional[draws.GlobalRows] = None):
         """Conv trunk + encoder LSTM + binarization.
 
@@ -368,13 +381,14 @@ class Seq2SeqBinaryVAE(nn.Module):
                 noise_ratio: float = 0.1, *, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
                 u: Optional[torch.Tensor] = None,
-                dropout_seed: Optional[int] = None,
+                dropout_seed: DropoutSeed = None,
                 rows: Optional[draws.GlobalRows] = None) -> RBVAEOutput:
         """Full autoencoding pass, on the plain trunk and sampler.
 
         ``deterministic=False`` means dropout and noise, as in the
-        reference: dropout masks come from ``dropout_seed`` (a host int,
-        needed when the variant has dropout). Noise is drawn from
+        reference: dropout masks come from ``dropout_seed`` (a host int or
+        a train step's generators, ``DropoutSeed``; needed when the variant
+        has dropout). Noise is drawn from
         ``generator`` or taken from ``u`` (uniform [0, 1), shaped like the
         binarized tensor) whenever either is given. ``rows``: ``x`` is a
         data-parallel rank's rows of a global batch, and both draws are

@@ -99,10 +99,14 @@ def deconv_d2s_k3s2p1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     product with a dilation zero is computed."""
     B, C, H, W = x.shape
     O = w.shape[1]
-    taps = torch.tensor(_D2S_TAPS, device=w.device)
     wp = F.pad(w, (0, 1, 0, 1))                          # [I, O, 4, 4]
-    w2 = wp[:, :, taps][:, :, :, :, taps]                # [I, O, py, jy, px, jx]
-    w2 = w2.permute(2, 4, 1, 0, 3, 5).reshape(4 * O, C, 2, 2)
+    # The taps by slices: an index tensor would be copied up from the host
+    # at every call, which a CUDA graph of a train step cannot hold.
+    taps = [slice(i, i + 1) for phase in _D2S_TAPS for i in phase]
+    w2 = torch.cat([wp[:, :, t] for t in taps], 2)
+    w2 = torch.cat([w2[:, :, :, t] for t in taps], 3)   # [I, O, 4, 4]
+    w2 = (w2.reshape(C, O, 2, 2, 2, 2)                  # [I, O, py, jy, px, jx]
+          .permute(2, 4, 1, 0, 3, 5).reshape(4 * O, C, 2, 2))
     y = F.conv2d(F.pad(x, (0, 1, 0, 1)), w2)             # [B, 4·O, H, W]
     return (y.reshape(B, 2, 2, O, H, W).permute(0, 3, 4, 1, 5, 2)
             .reshape(B, O, 2 * H, 2 * W))

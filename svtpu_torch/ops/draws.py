@@ -10,6 +10,10 @@ draws on every rank, and stays exact for any generator and device.
 The leading dimension of a drawn tensor may be the batch's rows times a
 factor ``k`` (the model flattens ``[B, T]`` into ``B * T`` frames): local
 row ``i``'s ``k`` entries are then global row ``rows[i]``'s.
+
+``Replicas`` are generators made once and seeded alike before each train
+step, which a CUDA graph of the step can hold (the trainer's
+``StepGenerators``).
 """
 from __future__ import annotations
 
@@ -20,10 +24,41 @@ import torch
 
 class GlobalRows(NamedTuple):
     """The global row of each local row of a batch, and the global batch's
-    row count."""
+    row count. ``rows`` lies on the device of the draws: a copy from the
+    host at every draw would make the host wait, and a CUDA graph cannot
+    hold it."""
 
     rows: torch.Tensor      # int64, one entry a local row
     total: int
+
+
+class Replicas:
+    """Generators on ``device`` that are seeded alike: ``seed(s)`` seeds
+    each with ``s``, and ``take()`` hands them out in turn (making one more
+    where all are taken), so every taker draws what a fresh generator seeded
+    with ``s`` draws. A conv stack under ``remat`` draws its dropout masks
+    twice a step, in its forward and in the recompute of the backward: two
+    replicas give both the same masks, as a fresh generator a call gives
+    them, and a CUDA graph of the step holds both (it cannot seed a
+    generator midway)."""
+
+    def __init__(self, device, seed: int = 0):
+        self.device = torch.device(device)
+        self.generators: list = []
+        self.seed(seed)
+
+    def seed(self, s: int) -> None:
+        self._seed, self._taken = int(s), 0
+        for g in self.generators:
+            g.manual_seed(self._seed)
+
+    def take(self) -> torch.Generator:
+        if self._taken == len(self.generators):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(self._seed)
+            self.generators.append(g)
+        self._taken += 1
+        return self.generators[self._taken - 1]
 
 
 class ShardedGenerator(NamedTuple):
@@ -58,8 +93,12 @@ def _draw(fn, shape, source: Source, dtype, device) -> torch.Tensor:
                          f"{len(rows)} local rows")
     full = fn((total * k,) + tuple(shape[1:]), generator=gen, dtype=dtype,
               device=device)
-    r = rows.to(device)
-    return full[(r[:, None] * k + torch.arange(k, device=device)).reshape(-1)]
+    if rows.device != full.device:
+        raise ValueError(f"global rows on {rows.device}, draws on "
+                         f"{full.device}: put the rows on the draws' device "
+                         f"once")
+    return full[(rows[:, None] * k
+                 + torch.arange(k, device=device)).reshape(-1)]
 
 
 def rand(shape, source: Source, dtype=None, device=None) -> torch.Tensor:

@@ -107,7 +107,8 @@ class PerceptualEncoder:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(batch_seed(self.seed, offset))
             if self.mesh.group("data") is not None:
-                rows = torch.arange(lo, lo + per).clamp(max=n - 1)
+                rows = torch.arange(lo, lo + per, device=self.device
+                                    ).clamp(max=n - 1)
                 gen = ShardedGenerator(gen, GlobalRows(rows, n))
             z = post.sample(gen)
         else:

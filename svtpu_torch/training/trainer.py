@@ -2,21 +2,29 @@
 (``svtpu/training/trainer.py:78-1088``), on one device or over a mesh of
 ranks (``parallel/``).
 
-The train step runs eagerly: both pair members go through the model as one
-``[2B, S]`` batch, uint8 frames are normalised on the device, and Adam
-(optax's defaults) updates the parameters. The differences from the JAX
-package are where eager PyTorch differs from ``jit``:
+A train step sends both pair members through the model as one ``[2B, S]``
+batch, normalises uint8 frames on the device, and updates the parameters
+with Adam (optax's defaults). On a CUDA device whose mesh has no "model"
+axis the step is one CUDA graph, captured once a train state and replayed
+at every step (``step_graph.py``), as ``svtpu`` jits its step; on the CPU
+and under a "model" axis it runs eagerly (``step_route``). One body serves
+both routes (``Trainer._step_body``). The differences from the JAX package:
 
   * The context-free passes use only the encoder's ``h``; under ``jit``
     XLA drops the decoder of those passes, here they run the encoder half
     (``Seq2SeqBinaryVAE._encode_to_latent``) alone, for the same values.
-  * A staged epoch (``fused_epoch``) keeps its per-step metric sums on the
-    device and reads them back once; its row indices go up once, before the
-    first step, and its steps never wait for the device. The temperature
-    and its floor are host floats, known for every step on the host.
+  * A staged epoch (``fused_epoch``, ``svtpu``'s ``lax.scan`` epoch) keeps
+    its per-step metric sums on the device and reads them back once; its
+    row indices go up once, before the first step, and its steps never
+    wait for the device. The step counter lives on the host, so the
+    temperature of every step and its floor are host floats; each step
+    writes its temperature into a 0-dim device tensor that the step reads
+    (a CUDA graph would hold a Python number as a constant).
   * Randomness: step ``s`` seeds its generators from
     ``batch_seed(seed + 1, s)`` (``Noise``), where the JAX step folds its
-    key by the step. The streams differ (Philox or Mersenne Twister against
+    key by the step. The generators are made once a trainer and seeded
+    anew before every step (``StepGenerators``), so that a graph can hold
+    them. The streams differ (Philox or Mersenne Twister against
     threefry); the objectives take injected uniforms so that tests can feed
     both packages the same draws.
   * ``nn.LSTM`` holds two biases a layer where ``svtpu`` has one
@@ -43,6 +51,7 @@ the hand-written kernels when the model config sets ``pallas_trunk`` /
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import signal
@@ -61,7 +70,7 @@ from svtpu_torch.evaluation.common import encode_chunks
 from svtpu_torch.evaluation.hamming import adjacent_hamming, modal_codes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops import losses
-from svtpu_torch.ops.draws import GlobalRows
+from svtpu_torch.ops.draws import GlobalRows, Replicas
 from svtpu_torch.ops.image import to_float01
 from svtpu_torch.parallel import distributed
 from svtpu_torch.parallel.mesh import make_mesh
@@ -71,6 +80,7 @@ from svtpu_torch.parallel.sharding import (full_optimizer_state,
 from svtpu_torch.training.checkpoints import BestCheckpointer
 from svtpu_torch.training.metrics import MetricsWriter
 from svtpu_torch.training.schedules import temperature_schedule
+from svtpu_torch.training.step_graph import StepGraph, step_route
 
 _M32 = 0xFFFFFFFF
 
@@ -81,6 +91,48 @@ def fold(key: int, i: int) -> int:
     return batch_seed((key ^ (key >> 32)) & _M32, i)
 
 
+class StepGenerators:
+    """The generators of a trainer's steps, made once and seeded anew before
+    every step (``seed``) with what ``Noise`` seeds fresh ones with: pass
+    ``k``'s Binary-Concrete noise ``fold(key, 2k)``, its dropout masks
+    ``batch_seed(fold(key, 2k + 1), stage)`` (stage 0 the encoder's conv
+    stack, 1 the decoder's). Each is a ``draws.Replicas``, made at its first
+    use, so the eager step and a CUDA graph of it, which can hold only
+    generators that outlive it (``all``), draw the same."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.key: Optional[int] = None
+        self._noise: dict = {}       # pass -> Replicas
+        self._dropout: dict = {}     # pass -> (Replicas, Replicas)
+
+    def seed(self, key: int) -> None:
+        self.key = key
+        for k, r in self._noise.items():
+            r.seed(fold(key, 2 * k))
+        for k, stages in self._dropout.items():
+            for stage, r in enumerate(stages):
+                r.seed(batch_seed(fold(key, 2 * k + 1), stage))
+
+    def noise(self, k: int) -> torch.Generator:
+        if k not in self._noise:
+            self._noise[k] = Replicas(self.device, fold(self.key, 2 * k))
+        return self._noise[k].take()
+
+    def dropout(self, k: int) -> tuple:
+        if k not in self._dropout:
+            seed = fold(self.key, 2 * k + 1)
+            self._dropout[k] = tuple(Replicas(self.device,
+                                              batch_seed(seed, stage))
+                                     for stage in (0, 1))
+        return self._dropout[k]
+
+    def all(self) -> list:
+        reps = [*self._noise.values(),
+                *(r for stages in self._dropout.values() for r in stages)]
+        return [g for r in reps for g in r.generators]
+
+
 class Noise:
     """The randomness of one objective evaluation.
 
@@ -89,21 +141,27 @@ class Noise:
     push. Pass ``k`` draws its Binary-Concrete noise from a generator on
     ``device`` seeded with ``fold(key, 2k)``, or takes ``uniforms[k]``
     where uniforms are given (tests feed JAX's draws so), and its dropout
-    masks from ``fold(key, 2k + 1)``. ``rows``: the batch is a
-    data-parallel rank's rows of a global one, and both draws are taken at
-    them (``ops/draws.py``).
+    masks from ``fold(key, 2k + 1)``. ``generators``: the trainer's
+    persistent ones, seeded with ``key`` (``StepGenerators.seed``), in
+    place of fresh generators. ``rows``: the batch is a data-parallel
+    rank's rows of a global one, and both draws are taken at them
+    (``ops/draws.py``).
     """
 
     def __init__(self, key: Optional[int], device, uniforms=None,
-                 rows: Optional[GlobalRows] = None):
+                 rows: Optional[GlobalRows] = None,
+                 generators: Optional[StepGenerators] = None):
         self.key = key
         self.device = torch.device(device)
         self.uniforms = uniforms
         self.rows = rows
+        self.generators = generators
 
     def generator(self, k: int) -> Optional[torch.Generator]:
         if self.uniforms is not None or self.key is None:
             return None
+        if self.generators is not None:
+            return self.generators.noise(k)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(fold(self.key, 2 * k))
         return gen
@@ -111,18 +169,25 @@ class Noise:
     def u(self, k: int) -> Optional[torch.Tensor]:
         return None if self.uniforms is None else self.uniforms[k]
 
-    def dropout_seed(self, k: int) -> Optional[int]:
-        return None if self.key is None else fold(self.key, 2 * k + 1)
+    def dropout_seed(self, k: int):
+        """Pass ``k``'s dropout masks for the model (``DropoutSeed``): a host
+        int, or the persistent generators of its two conv stacks."""
+        if self.key is None:
+            return None
+        if self.generators is not None:
+            return self.generators.dropout(k)
+        return fold(self.key, 2 * k + 1)
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer, and the number of optimizer steps taken
-    (a host int)."""
+    """The model, its optimizer, the number of optimizer steps taken (a host
+    int), and on the graph route the CUDA graph of its step."""
 
     step: int
     model: Seq2SeqBinaryVAE
     optimizer: torch.optim.Optimizer
+    graph: Optional[StepGraph] = None
 
 
 def fold_lstm_biases(model: torch.nn.Module) -> None:
@@ -336,7 +401,8 @@ class Trainer:
       labels_by_index: an explicit frame id → state id map in place of the
         flags' labels.
       device: CUDA unless ``"cpu"`` is asked for (raises without a card);
-        under NCCL, this rank's card.
+        under NCCL, this rank's card. On a CUDA device with no "model" mesh
+        axis every train step is a replay of a CUDA graph (``step_route``).
     """
 
     def __init__(self, model_cfg: RBVAEConfig, train_cfg: TrainConfig,
@@ -385,6 +451,16 @@ class Trainer:
         self._base_seed = self.seed + 1
         # The temperature floor; the trap guard raises it.
         self._temp_floor = float(train_cfg.final_temperature)
+        # The step reads its temperature here, a float64 scalar on the
+        # device: cast to the compute dtype it rounds the host float as
+        # torch.full of it would. The step's generators are made once.
+        self._temp = torch.zeros((), dtype=torch.float64, device=self.device)
+        self._gens = StepGenerators(self.device)
+        # Adam is capturable on the card, on every route there, so that the
+        # graph and the eager step do the same arithmetic (its bias
+        # corrections on the device); the CPU refuses it.
+        self._capturable = self.device.type == "cuda"
+        self._graphed = step_route(self.device, self.mesh) == "graph"
 
         if train_cfg.objective != "simple":
             self.train_batcher = PairBatcher(
@@ -428,7 +504,8 @@ class Trainer:
             # own, stepped as one list.
             groups.append({"params": sharded})
         opt = torch.optim.Adam(groups, lr=self.cfg.learning_rate,
-                               betas=(0.9, 0.999), eps=1e-8)
+                               betas=(0.9, 0.999), eps=1e-8,
+                               capturable=self._capturable)
         return TrainState(step=0, model=model, optimizer=opt)
 
     # ----------------------------------------------------------- train step
@@ -456,27 +533,57 @@ class Trainer:
                                               0.0, None, None)
             return float(h[:, 0].abs().mean())
 
-    def _train_step(self, state: TrainState, batch: torch.Tensor):
-        """One optimizer step on this rank's rows of a batch; returns the
-        step's metrics (this rank's, tensors on the device, not read back)
-        and its temperature (a host float)."""
+    def _step_body(self, model, optimizer, batch: torch.Tensor
+                   ) -> torch.Tensor:
+        """The device work of one train step, one definition for the eager
+        step and its CUDA graph (``svtpu``'s ``_train_step_body``): the
+        objective at the temperature in ``self._temp`` with the generators
+        of ``self._gens``, as ``_step`` set them for the step, the backward,
+        the gradients' mean over the data axis, Adam. Returns the step's
+        metrics (this rank's) as one float32 vector on the device, in
+        ``_epoch_metric_names`` order."""
+        noise = Noise(self._gens.key, self.device, rows=self._rows,
+                      generators=self._gens)
+        optimizer.zero_grad(set_to_none=True)
+        total, metrics = self._objective()(model, self.cfg,
+                                           self._batch(batch), self._temp,
+                                           False, noise, deterministic=False)
+        total.backward()
+        distributed.all_reduce_mean_(
+            [p.grad for p in model.parameters() if p.grad is not None],
+            self._data_group, self.mesh.size("data"))
+        optimizer.step()
+        self._epoch_metric_names = sorted(metrics)
+        return torch.stack([metrics[k].detach().float()
+                            for k in self._epoch_metric_names])
+
+    def _step(self, state: TrainState, batch: torch.Tensor):
+        """One optimizer step on this rank's rows of a batch: the step
+        counter, temperature and seeds on the host, then the body, eagerly
+        or as a replay of the state's graph. Returns the metric vector (on
+        the graph route the graph's, which the next step overwrites) and the
+        temperature (a host float)."""
         cfg = self.cfg
-        batch = self._batch(batch)
         state.step += 1
         temp = max(temperature_schedule(
             state.step, cfg.init_temperature, cfg.final_temperature,
             cfg.anneal_rate, cfg.num_steps_to_update), self._temp_floor)
-        noise = Noise(batch_seed(self._base_seed, state.step), self.device,
-                      rows=self._rows)
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self._objective()(state.model, cfg, batch, temp,
-                                           False, noise, deterministic=False)
-        total.backward()
-        distributed.all_reduce_mean_(
-            [p.grad for p in state.model.parameters() if p.grad is not None],
-            self._data_group, self.mesh.size("data"))
-        state.optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}, temp
+        self._gens.seed(batch_seed(self._base_seed, state.step))
+        self._temp.fill_(temp)
+        if not self._graphed:
+            return self._step_body(state.model, state.optimizer, batch), temp
+        if state.graph is None:
+            state.graph = StepGraph(
+                functools.partial(self._step_body, state.model,
+                                  state.optimizer), self._gens.all,
+                self.device)
+        return state.graph(batch), temp
+
+    def _train_step(self, state: TrainState, batch: torch.Tensor):
+        """``_step`` with the metrics by name (this rank's, tensors on the
+        device, not read back) and the temperature (a host float)."""
+        vec, temp = self._step(state, batch)
+        return dict(zip(self._epoch_metric_names, vec.clone())), temp
 
     def _data_mean(self, vec: torch.Tensor) -> torch.Tensor:
         """A metric vector averaged over the data axis."""
@@ -499,12 +606,9 @@ class Trainer:
         order). Returns the sums and the sum of the steps' temperatures."""
         sums, temps = None, 0.0
         for i in range(len(idx)):
-            metrics, temp = self._train_step(state, idx[i])
-            names = sorted(metrics)
-            vec = torch.stack([metrics[k].float() for k in names])
-            sums = vec if sums is None else sums + vec
+            vec, temp = self._step(state, idx[i])
+            sums = vec.clone() if sums is None else sums + vec
             temps += temp
-        self._epoch_metric_names = names
         return sums, temps
 
     def _fused_epoch(self, state: TrainState, epoch: int):
@@ -534,13 +638,12 @@ class Trainer:
             batches = (self.store.gather(ix[lo:hi]) for ix in
                        self.train_batcher.epoch_frame_indices(epoch))
         for b in prefetch_to_device(batches, self.device):
-            metrics, temp = self._train_step(state, b)
+            vec, temp = self._step(state, b)
             nb += 1
             frames += self.cfg.batch_size * int(np.prod(b.shape[1:3]))
-            names = sorted(metrics)
-            vec = self._data_mean(torch.stack([metrics[k].float()
-                                               for k in names]))
-            m = dict(zip(names, vec.cpu().double().tolist()))
+            vec = self._data_mean(vec.clone())
+            m = dict(zip(self._epoch_metric_names,
+                         vec.cpu().double().tolist()))
             m["temperature"] = temp
             if log_every and nb % log_every == 0:
                 self.writer.scalars("Batch", m, state.step)
@@ -581,6 +684,15 @@ class Trainer:
                                        tree["optimizer"], names)
         state.model.load_state_dict(model_sd)
         state.optimizer.load_state_dict(opt_sd)
+        # A checkpoint names the device it was saved from in ``capturable``;
+        # Adam here keeps this trainer's, and a graph of the old moments is
+        # stale.
+        for group in state.optimizer.param_groups:
+            group["capturable"] = self._capturable
+        if self._capturable:
+            for s in state.optimizer.state.values():
+                s["step"] = s["step"].to(self.device, torch.float32)
+        state.graph = None
 
     # ------------------------------------------------------------- encoding
 
@@ -929,6 +1041,10 @@ class Trainer:
             signal.signal(signal.SIGUSR1, prev_handler)
         history["wall_time_s"] = time.time() - t0
         history["frames_seen"] = frames_seen
+        # The run's step graph goes with it (its memory pool holds the
+        # step's activations); a caller that steps the final state on
+        # captures anew.
+        state.graph = None
         history["final_state"] = state
         self.writer.close()
         return history

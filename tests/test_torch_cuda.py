@@ -104,3 +104,66 @@ def test_train_step_on_the_card_matches_the_cpu(dtype):
         for n, g in g_cpu.items():
             err = float((g_card[n] - g).abs().max())
             assert err <= 1e-3 * float(g.abs().max()), (n, err)
+
+
+class _Frames:
+    """Seeded 32x32 frames with a frame store's interface (row i: frame
+    id i)."""
+
+    def __init__(self, n):
+        self.array = np.random.default_rng(0).integers(0, 256,
+                                                       (n, 32, 32, 3),
+                                                       np.uint8)
+
+    def rows(self, idx):
+        return np.asarray(idx, np.int64)
+
+    def gather(self, idx):
+        return self.array[np.asarray(idx)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_step_graph_replays_the_eager_step_bit_for_bit(remat):
+    """A tiny contrastive trainer on the card: 8 steps through the step
+    graph (2 eager warm-up steps, the capture, replays across anneal
+    updates and a raised floor) and 8 through the eager route, from the
+    same initial parameters, under deterministic algorithms: every metric,
+    parameter and Adam tensor equal."""
+    from svtpu_torch.data.segments import split_segments
+    from svtpu_torch.training.step_graph import StepGraph
+    from svtpu_torch.training.trainer import Trainer
+
+    _require_card()
+    cfg = rbvae_variant("contrastive", 6, input_hw=(32, 32),
+                        conv_features=(8, 8, 8), remat=remat)
+    tcfg = TrainConfig(batch_size=4, num_steps_to_update=2, anneal_rate=0.3,
+                       contrast_on="p", contextfree_contrast=True,
+                       l1_logits=0.1)
+    splits = split_segments(((0, 20), (20, 40), (40, 60)), 0.2, 0.2)
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graphed in (True, False):
+            tr = Trainer(cfg, tcfg, _Frames(60), splits, (20, 40),
+                         device="cuda")
+            tr._graphed = graphed
+            st = tr.init_state()
+            replays = StepGraph.replays
+            vecs = []
+            for i in range(8):
+                if i == 5:
+                    tr._temp_floor = 1.9
+                vec, _ = tr._step(st, torch.from_numpy(next(iter(
+                    tr.train_batcher.epoch_indices(i)))).cuda())
+                vecs.append(vec.cpu())
+            opt = st.optimizer.state_dict()["state"]
+            runs.append((vecs, st.model.state_dict(), opt,
+                         StepGraph.replays - replays))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (gv, gp, go, g_replays), (ev, ep, eo, e_replays) = runs
+    assert (g_replays, e_replays) == (6, 0)
+    assert all(torch.equal(a, b) for a, b in zip(gv, ev))
+    assert all(torch.equal(gp[k], ep[k]) for k in ep)
+    assert all(torch.equal(go[i][k], eo[i][k]) for i in eo for k in eo[i])
