@@ -31,6 +31,21 @@ on and their launches counted:
     ``percep-flagship`` RBVAE (latent 25, 4-layer residual LSTM) through
     ``lstm_binary_concrete``, on 16 seeded 720x1280 frames; and one
     ``decode_latents`` (the decoder's attention);
+  * the serving encodes as CUDA graphs (``phase_encode_graphs``), each
+    path on the graph route (a graph a key: the first call eager, the
+    second captured, then replays) held bit for bit against the eager
+    route (``_graphed = False``): the pixel ``run_frames`` (the flagship at
+    batch 512 with both kernels, the simple variant, latent 75; noisy and
+    noise off), the percep ``run_frames``, the SD first stage's stochastic
+    latents and ``decode_latents``, ``RBVAEBundle.encode`` with noise at
+    two temperatures, and the trainer's probes over three epochs of
+    annealed temperature on the bank and the host route; each key captured
+    once, the launch counts of both routes equal, the kernels of traced
+    pixel and SD encode replays equal to the launches their captures
+    counted, one replay of each kind under sync-debug "error", both routes
+    timed, each key's capture seconds and pool bytes printed, and an
+    encode that reads the card on the host failing its capture in a
+    process of its own;
   * the training path: ``Trainer.train`` of the flagship preset (latent
     25, bf16, full width, batch 32) on a seeded synthetic video at the
     geometry of ``chinese_chess``, 3 fused epochs and the same 3 one step
@@ -389,6 +404,20 @@ def phase_sampler_kernel() -> dict:
                                               0.1), noisy),
             "sampler: a seed tensor on the card gives other bits than the "
             "same seed as an int")
+    # The temperature and the noise scale read from device memory (what a
+    # graph of the encode holds) give the by-value launch's bits.
+    temp_t = torch.tensor(TEMPERATURE, dtype=torch.float32, device="cuda")
+    scale_t = torch.tensor(0.1, dtype=torch.float32, device="cuda")
+    by_pointer = all(torch.equal(binary_concrete_fused(
+        logits, seed_t, temp_t, scale_t, hard=h, noisy=n),
+        binary_concrete_fused(logits, 77, TEMPERATURE, 0.1, hard=h, noisy=n))
+        for h in (True, False) for n in (True, False))
+    soft_ptr = binary_concrete_fused(logits, seed_t, temp_t, scale_t,
+                                     hard=False)
+    err_ptr = float((soft_ptr.float() - soft_ref.float()).abs().max())
+    require(by_pointer and err_ptr <= 2.0 ** -8,
+            "sampler: the temperature and noise scale read from the card "
+            "give other bits than the same values by value")
     zeros = torch.zeros(256, 128, device="cuda")
     y = binary_concrete_fused(zeros, 3, 0.5, 1.0)
     p_one = float(y.mean())
@@ -402,7 +431,10 @@ def phase_sampler_kernel() -> dict:
           f"Philox {noisy_mismatch:.3e} (limit 1e-3); zero logits p(1) "
           f"{p_one:.4f} (0.45-0.55); same seed same {same}; new seed new "
           f"{differs}; logits +8 p(1) {big:.4f} (> 0.95); a seed tensor "
-          f"on the card gives the int seed's bits")
+          f"on the card gives the int seed's bits; the temperature and "
+          f"noise scale as 0-dim tensors on the card give the by-value "
+          f"bits (hard and soft, noisy and noise off), soft vs plain "
+          f"{err_ptr:.3e}")
     require(err <= 2.0 ** -8, "sampler noisy soft values disagree")
     require(noisy_mismatch < 1e-3, "sampler noisy: disagrees with Philox")
     require(0.45 < p_one < 0.55, "sampler: p(1) at zero logits")
@@ -490,6 +522,19 @@ def phase_lstm_kernel() -> dict:
                 soft = float((s_codes.float() - binary_concrete_fused_plain(
                     s_h, 1000 + i, TEMPERATURE, 0.1, hard=False).float())
                     .abs().max())
+                # The temperature and noise scale read from the card.
+                temp_t = torch.tensor(TEMPERATURE, dtype=torch.float32,
+                                      device="cuda")
+                scale_t = torch.tensor(0.1, dtype=torch.float32,
+                                       device="cuda")
+                p_codes, p_h = lstm_binary_concrete(
+                    lstm, x, seed_t, temp_t, scale_t, hard=False,
+                    return_h=True)
+                by_pointer = (torch.equal(p_codes, s_codes)
+                              and torch.equal(p_h, s_h) and torch.equal(
+                                  lstm_binary_concrete(lstm, x, seed_t,
+                                                       temp_t, scale_t),
+                                  n_codes))
             tag = "bf16" if dt == torch.bfloat16 else "f32"
             print(f"check lstm_binary_concrete vs plain, {name} {tag}: h "
                   f"max_abs_err {err:.3e} (limit {limit:.3e}"
@@ -499,7 +544,12 @@ def phase_lstm_kernel() -> dict:
                   f"identical {same}, noisy identical (and to the standalone "
                   f"kernel) {same_noisy}; noisy soft max_abs_err {soft:.3e} "
                   f"(limit 2^-8); share of ones "
-                  f"{float(n_codes.float().mean()):.3f}")
+                  f"{float(n_codes.float().mean()):.3f}; the temperature "
+                  f"and noise scale read from the card give the by-value "
+                  f"bits {by_pointer}")
+            require(by_pointer, f"lstm_binary_concrete {name} {tag}: the "
+                    "temperature and noise scale read from the card give "
+                    "other bits than by value")
             require(within, f"lstm_binary_concrete {name} {tag}: h "
                     "disagrees")
             require(same and same_noisy, f"lstm_binary_concrete {name} "
@@ -986,6 +1036,11 @@ def phase_percep_path(card: str) -> dict:
     for dtype, n in (("bfloat16", PERCEP_FRAMES), ("float32", 4)):
         det = {k: percep_pipeline(weights, k, dtype, deterministic=True)
                for k in (True, False)}
+        for p in det.values():
+            # Eager: each SD graph's pool holds an encode's working set
+            # (PERF.md §5); phase_encode_graphs holds the graph route
+            # against this one.
+            set_route(p, False)
         lat = {k: p.percep.encode_frames(sd_frames[:n]) for k, p in
                det.items()}
         rel[dtype] = float(np.abs(lat[True] - lat[False]).max()
@@ -1028,7 +1083,8 @@ def phase_percep_path(card: str) -> dict:
           f"median of 5, spread {(max(enc_ms) - min(enc_ms)) / med_enc:.3f} "
           f"[{card}]")
     phase_percep_breakdown(card, pipe, frames, batch)
-    return {"launches": launches, "fps": med, "encode_ms": med_enc}
+    return {"launches": launches, "fps": med, "encode_ms": med_enc,
+            "weights": weights}
 
 
 def phase_percep_breakdown(card: str, pipe, frames, batch) -> None:
@@ -1105,6 +1161,544 @@ def phase_percep_breakdown(card: str, pipe, frames, batch) -> None:
             ms, spread = cuda_ms(call, warmup=2, trials=3, iters=2)
             print(f"time: stage {name}, batch {PERCEP_BATCH}: {ms:.4f} ms, "
                   f"spread {spread:.3f} [{card}]")
+
+
+def set_route(owner, graphed: bool) -> None:
+    """Put an owner of graphed encodes, and its perceptual encoder where it
+    has one, on the graph route or on the eager one (the reference)."""
+    owner._graphed = graphed
+    if getattr(owner, "percep", None) is not None:
+        owner.percep._graphed = graphed
+
+
+def graph_keys(owner) -> list:
+    """Each key of the encode graphs of ``owner`` and of its perceptual
+    encoder: its tag, inputs, eager calls, captures, replays, the capture's
+    seconds and the pool's bytes."""
+    out = []
+    for o in (owner, getattr(owner, "percep", None)):
+        if o is not None and o._encode_graphs is not None:
+            out += o._encode_graphs.report()
+    return out
+
+
+def key_line(k: dict) -> str:
+    pool = "not named" if k["pool_bytes"] is None \
+        else f"{k['pool_bytes'] / 2 ** 20:.1f} MiB"
+    return (f"{k['tag']} {k['inputs']} {k['static']}: eager "
+            f"{k['eager']}, captures {k['captures']}, replays "
+            f"{k['replays']}, capture {k['capture_s']:.3f} s, pool {pool}")
+
+
+def encode_routes(name: str, make, run, calls: list, keys: int,
+                  card: str) -> dict:
+    """One serving path on both encode routes. ``make()`` builds its owner
+    twice: on the graph route (the default on the card) and on the eager
+    route (``_graphed = False``, the reference). ``run(owner, call)`` runs
+    each of ``calls`` and returns its result on the host. Holds the two
+    routes' results equal bit for bit; their kernel launches equal (the
+    graph route's counted at the capture and added at every replay, the
+    eager route's each a launch), so the counts equal the kernels that
+    ran; and each of the graph route's ``keys`` keys run eagerly once,
+    captured once and replayed at every later call. Returns the graph
+    route's owner."""
+    from svtpu_torch.ops.cuda_graph import Launches
+
+    counters = kernel_counters()
+    launches = Launches(counters.values())
+    out = {}
+    for graphed in (False, True):       # the reference's memory goes first
+        owner = make()
+        set_route(owner, graphed)
+        torch.cuda.synchronize()
+        before = launches.read()
+        t0 = time.perf_counter()
+        res = [run(owner, c) for c in calls]
+        torch.cuda.synchronize()
+        out[graphed] = (res, dict(zip(counters, (
+            n for n, _ in launches.since(before)))), time.perf_counter() - t0)
+        if not graphed:
+            del owner
+            torch.cuda.empty_cache()
+    (gres, gl, gs), (eres, el, es) = out[True], out[False]
+    same = len(gres) == len(eres) and all(
+        np.array_equal(a, b) for a, b in zip(gres, eres))
+    report = graph_keys(owner)
+    once = len(report) == keys and all(
+        k["eager"] == 1 and k["captures"] == 1 and k["replays"] >= 1
+        for k in report)
+    print(f"graph route: {name}: {len(calls)} calls; graph = eager bit for "
+          f"bit: {same}; launches on the graph route {gl}, eager {el}; "
+          f"{len(report)} key(s) (expected {keys}): "
+          + "; ".join(key_line(k) for k in report)
+          + f"; wall, first calls and capture included: graph {gs:.3f} s, "
+          f"eager {es:.3f} s [{card}]")
+    require(same, f"{name}: the graph route differs from the eager route")
+    require(gl == el and any(gl.values()), f"{name}: launches counted on "
+            f"the graph route {gl}, on the eager route {el}")
+    require(once, f"{name}: each key must run eagerly once, be captured "
+            f"once and replay after")
+    return owner
+
+
+def replay_quietly(graphs, *args, **kwargs) -> torch.Tensor:
+    """One call of an ``EncodeGraph`` whose key is captured, its inputs on
+    the card, under sync-debug "error": a copy of the static output, made
+    on the card. Raises if the call made the host wait or did not
+    replay."""
+    from svtpu_torch.models.encode_graph import EncodeGraph
+
+    replays = EncodeGraph.replays
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = graphs(*args, **kwargs).clone()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(EncodeGraph.replays == replays + 1,
+            "a call under sync debug did not replay its graph")
+    return out
+
+
+# The kernels each wrapper may launch, by their labels in a trace
+# (``kernel_label``, the namespace dropped): one a launch.
+WRAPPER_KERNELS = {
+    "fused_conv01": ("fused_conv01_tc", "fused_conv01_kernel"),
+    "lstm_binary_concrete": ("lstm_binary_concrete_kernel",),
+    "binary_concrete_fused": ("binary_concrete_kernel",),
+    "flash_attention": ("flash_d512_kernel", "flash_bf16_kernel",
+                        "flash_f32_kernel")}
+
+
+def traced_replays(graphs, tag: str, shape: list, fn, n: int, what: str,
+                   card: str) -> dict:
+    """Trace ``n`` calls of ``fn``, each one replay of the captured key of
+    ``graphs`` tagged ``tag`` whose input has ``shape``, and hold the
+    kernels that ran in the trace, wrapper by wrapper, against ``n`` times
+    the launches the key's capture counted (``replay_launches``): the
+    launches the graph route's counts add at a replay are then measured,
+    not inferred. Returns the trace's ``trace_breakdown``."""
+    import tempfile
+
+    from svtpu_torch.utils import profiling
+
+    def key():
+        (k,) = [k for k in graphs.report() if k["tag"] == tag
+                and k["inputs"][0] == list(shape) and k["captures"]]
+        return k
+
+    replays = key()["replays"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.inference_mode(), profiling.trace(tmp):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        tb = trace_breakdown(Path(tmp), n, by_op=False)
+    k = key()
+    ran = {w: sum(c for label, c in tb["counts"].items()
+                  if label.split("::")[-1] in labels)
+           for w, labels in WRAPPER_KERNELS.items()}
+    want = {w: n * k["replay_launches"][w] for w in WRAPPER_KERNELS}
+    print(f"check {what}: {n} replays of {tag} {shape} traced; the kernels "
+          f"that ran, by wrapper, {ran}; {n} x the launches its capture "
+          f"counted {want} [{card}]")
+    require(k["replays"] == replays + n, f"{what}: the {n} traced calls "
+            f"were not {n} replays")
+    require(ran == want and any(want.values()), f"{what}: the kernels that "
+            f"ran in {n} replays differ from the launches counted for them")
+    return tb
+
+
+def route_times(owner, fn, n: int = 6) -> dict:
+    """Host seconds of ``fn()`` (ending with its results on the host) on
+    each route of ``owner``, medians of ``n`` taken in turns (graph, eager,
+    eager, graph, ...), after two warm-up calls a route (a key's first call
+    and its capture)."""
+    times = {True: [], False: []}
+    for graphed in (True, False):
+        set_route(owner, graphed)
+        fn()
+        fn()
+    for i in range(n):
+        for graphed in ((True, False) if i % 2 == 0 else (False, True)):
+            set_route(owner, graphed)
+            t0 = time.perf_counter()
+            fn()
+            times[graphed].append(time.perf_counter() - t0)
+    set_route(owner, True)
+    return {"graph": statistics.median(times[True]),
+            "eager": statistics.median(times[False])}
+
+
+def phase_encode_graphs(card: str, weights: dict) -> dict:
+    """The serving encodes as CUDA graphs (``models/encode_graph.py``),
+    each path on the graph route held against the eager route bit for bit
+    (``encode_routes``): the pixel ``run_frames`` (the flagship at batch 512
+    with both kernels, also at 432x768 through the resize; the simple
+    variant; latent 75), noisy and noise off; the percep ``run_frames``
+    (codes and the SD first stage's stochastic latents) and
+    ``decode_latents``; ``RBVAEBundle.encode`` with noise at two
+    temperatures and without; the trainer's probes across three epochs of
+    annealed temperature with the weights updated in place between them,
+    on the bank route and the host route. One replay of each kind under
+    sync-debug "error"; 5 pixel and 2 SD encode replays traced, their
+    kernels held against the launches counted for them
+    (``traced_replays``); each path timed on both routes; a capture that
+    fails, in a process of its own."""
+    import dataclasses
+    import tempfile
+
+    from svtpu_torch import batch_seed
+    from svtpu_torch.config import TrainConfig, rbvae_variant
+    from svtpu_torch.evaluation.common import (RBVAEBundle, chunk_encoder,
+                                               padded_chunks)
+    from svtpu_torch.evaluation.consistency import (PERTURBATIONS,
+                                                    evaluate_consistency)
+    from svtpu_torch.models.encode_graph import EncodeGraph
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.ops.image import resize_u8
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+    from svtpu_torch.training.schedules import temperature_schedule
+    from svtpu_torch.training.trainer import Trainer
+    from svtpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    zero_counts(counters)
+    captures0 = EncodeGraph.captures
+    rng = np.random.default_rng(12)
+    px = rng.integers(0, 256, (BATCH, 256, 256, 3), np.uint8)
+    px_large = rng.integers(0, 256, (BATCH, 432, 768, 3), np.uint8)
+    px_small = rng.integers(0, 256, (BATCH, 64, 64, 3), np.uint8)
+
+    def frames_run(pipe, call):
+        return pipe.run_frames(*call)
+
+    # Pixel paths, noisy and noise off.
+    cfg, sd = flagship(True)
+    simple_cfg = rbvae_variant("simple", LATENT, compute_dtype="bfloat16",
+                               pallas_sampler=True)
+    simple_sd = Seq2SeqBinaryVAE(simple_cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(22)
+                                 ).state_dict()
+    wide_cfg = rbvae_variant("contrastive", WIDE_LATENT,
+                             compute_dtype="float32", pallas_trunk=True,
+                             pallas_sampler=True)
+    wide_sd = Seq2SeqBinaryVAE(wide_cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(23)
+                               ).state_dict()
+    pipe = None
+    for noise in (True, False):
+        tag = "noisy" if noise else "noise off"
+        calls = [(px, i) for i in range(3)]
+        if noise:
+            calls += [(px_large, 3), (px_large, 4)]
+        owner = encode_routes(
+            f"pixel run_frames, flagship, batch {BATCH}, bf16, both "
+            f"kernels, 256x256{' and 432x768' if noise else ''}, {tag}",
+            lambda: VideoSymbolPipeline(cfg, sd, noise=noise), frames_run,
+            calls, 2 if noise else 1, card)
+        if noise:
+            pipe = owner
+        else:
+            owner.drop_graphs()
+        del owner
+        encode_routes(
+            f"pixel run_frames, simple variant, 64x64, batch {BATCH}, bf16, "
+            f"{tag}",
+            lambda: VideoSymbolPipeline(simple_cfg, simple_sd, noise=noise),
+            frames_run, [(px_small, i) for i in range(3)], 1, card)
+        encode_routes(
+            f"pixel run_frames, latent {WIDE_LATENT}, f32, batch 64, {tag}",
+            lambda: VideoSymbolPipeline(wide_cfg, wide_sd, noise=noise),
+            frames_run, [(px[:64], i) for i in range(3)], 1, card)
+    x_dev = torch.from_numpy(px).cuda()
+    z = replay_quietly(pipe.encode_graphs(), "run_frames", pipe.model,
+                       (pipe.hard, pipe.noise), pipe._codes, (x_dev,),
+                       pipe.temperature, pipe.noise_ratio,
+                       batch_seed(pipe.seed, 7))
+    require(np.array_equal(z.cpu().numpy(), pipe.run_frames(px, 7)),
+            "pixel: the replay under sync debug differs")
+    pipe.drop_graphs()
+
+    # The perceptual path: codes, the SD first stage's latents, decode.
+    frames = np.random.default_rng(7).integers(
+        0, 256, (PERCEP_FRAMES, 720, 1280, 3), np.uint8)
+    sd_frames = resize_u8(torch.from_numpy(frames), (704, 1280)).numpy()
+    z8 = np.random.default_rng(8).normal(
+        size=(PERCEP_BATCH, 88, 160, 4)).astype(np.float32)
+
+    def percep_run(p, call):
+        if call == "latents":
+            return p.percep.encode_frames(sd_frames)
+        return p.run_frames(frames, call)
+
+    ppipe = encode_routes(
+        f"percep run_frames ({PERCEP_FRAMES} frames 720x1280, SD batch "
+        f"{PERCEP_BATCH}, stochastic, noisy codes) x2, then the SD latents "
+        f"of {PERCEP_FRAMES} frames", lambda: percep_pipeline(weights, True),
+        percep_run, [0, 1, "latents"], 2, card)
+    enc = ppipe.percep
+    lat = replay_quietly(enc.encode_graphs(), "sd encode", enc.model, (),
+                         enc._encode_body,
+                         (torch.from_numpy(sd_frames[:PERCEP_BATCH]).cuda(),),
+                         seed=batch_seed(enc.seed, 0))
+    latents = enc.encode_frames(sd_frames)
+    codes = replay_quietly(ppipe.encode_graphs(), "run_frames", ppipe.model,
+                           (ppipe.hard, ppipe.noise), ppipe._codes,
+                           (torch.from_numpy(latents).cuda(),),
+                           ppipe.temperature, ppipe.noise_ratio,
+                           batch_seed(ppipe.seed, 0))
+    require(np.array_equal(lat.cpu().numpy(), latents[:PERCEP_BATCH])
+            and np.array_equal(codes.cpu().numpy(),
+                               ppipe.run_frames(frames, 0)),
+            "percep: a replay under sync debug differs")
+    traced_replays(enc.encode_graphs(), "sd encode",
+                   [PERCEP_BATCH, 704, 1280, 3],
+                   lambda: enc.encode_frames(sd_frames[:PERCEP_BATCH]), 2,
+                   "the SD encode's replays", card)
+    t = route_times(ppipe, lambda: ppipe.run_frames(frames, 0))
+    t_enc = route_times(enc, lambda: enc.encode_frames(
+        sd_frames[:PERCEP_BATCH]))
+    ppipe.drop_graphs()
+    enc.drop_graphs()
+    torch.cuda.empty_cache()
+    dec = encode_routes(
+        f"SD decode_latents of {PERCEP_BATCH} latents x2",
+        lambda: percep_pipeline(weights, True).percep,
+        lambda e, _: e.decode_latents(z8), [0, 1], 1, card)
+    pix = replay_quietly(dec.encode_graphs(), "sd decode", dec.model, (),
+                         dec._decode_body, (torch.from_numpy(z8).cuda(),))
+    require(np.array_equal(pix.cpu().numpy(), dec.decode_latents(z8)),
+            "SD decode: a replay under sync debug differs")
+    t_dec = route_times(dec, lambda: dec.decode_latents(z8), n=4)
+    dec.drop_graphs()
+    del dec, ppipe, enc
+    torch.cuda.empty_cache()
+    print(f"time: percep run_frames ({PERCEP_FRAMES} uint8 720x1280 host "
+          f"frames in, codes out): graph route "
+          f"{PERCEP_FRAMES / t['graph']:.2f} frames/s, eager "
+          f"{PERCEP_FRAMES / t['eager']:.2f}; SD encode_frames of "
+          f"{PERCEP_BATCH}: graph {t_enc['graph'] * 1e3:.3f} ms, eager "
+          f"{t_enc['eager'] * 1e3:.3f} ms; decode_latents of "
+          f"{PERCEP_BATCH}: graph {t_dec['graph'] * 1e3:.3f} ms, eager "
+          f"{t_dec['eager'] * 1e3:.3f} ms [{card}]")
+
+    # Evaluation: the bundle's chunks, with noise at two temperatures and
+    # without.
+    eval_px = rng.integers(0, 256, (300, 256, 256, 3), np.uint8)
+    bundle = encode_routes(
+        "evaluation RBVAEBundle.encode, 300 uint8 frames in chunks of 128 "
+        "(the last padded), the flagship, noise on at temperatures 0.2 and "
+        "0.5, then noise off",
+        lambda: RBVAEBundle(cfg, sd),
+        lambda b, c: b.encode(eval_px, temperature=c[0], noise=c[1], seed=4),
+        [(0.2, True), (0.5, True), (0.2, False), (0.5, False)], 2, card)
+    got = replay_quietly(
+        bundle.encode_graphs(), "encode_chunks", bundle.model,
+        (True, True),
+        chunk_encoder(bundle.model, bundle.prep, True, True),
+        (torch.from_numpy(eval_px[:128]).cuda(),), 0.5, 0.1,
+        batch_seed(4, 0))
+    require(np.array_equal(got.cpu().numpy(), bundle.encode(
+        eval_px[:128], temperature=0.5, seed=4)),
+        "evaluation: the replay under sync debug differs")
+
+    # The trainer's probes: three epochs of annealed temperature, the
+    # weights moved in place between them (Adam's updates, as a graph sees
+    # them), on the bank route and on the host route.
+    meta, splits, ids, states = train_video()
+    store = MemoryStore(video_frames(meta, states), ids)
+    tcfg = TrainConfig(**FLAGSHIP_TRAIN)
+    temps = [temperature_schedule(s, tcfg.init_temperature,
+                                  tcfg.final_temperature, tcfg.anneal_rate,
+                                  tcfg.num_steps_to_update)
+             for s in (1, 600, 1200)]
+    model = Seq2SeqBinaryVAE(cfg, device="cuda")
+    epochs = [{k: v * (1 + 0.002 * e) if v.is_floating_point() else v
+               for k, v in sd.items()} for e in range(3)]
+    val_idx = splits.flat("val")
+
+    def probe_run(tr, e):
+        model.load_state_dict(epochs[e])       # in place: same addresses
+        rows = (store.rows(np.asarray(val_idx)) if tr._bank is not None
+                else store.gather(np.asarray(val_idx)))
+        return np.concatenate([
+            tr._val_codes(model, val_idx, temps[e], True, e),
+            tr._val_codes(model, val_idx, temps[e], False, e),
+            tr.encode_frames(model, rows, temps[e], hard=False, seed=e,
+                             from_bank=tr._bank is not None)])
+
+    probes = {}
+    for stage in ("auto", False):
+        route = "bank" if stage else "host"
+        probes[route] = encode_routes(
+            f"trainer probes ({route} route; {len(val_idx)} val frames; "
+            f"consistency, separation and soft codes) at the anneal's "
+            f"temperatures {[round(t, 4) for t in temps]}, the weights "
+            f"updated in place between epochs",
+            lambda: Trainer(cfg, dataclasses.replace(tcfg,
+                                                     stage_frames=stage),
+                            store, splits, meta.flags, device="cuda"),
+            probe_run, [0, 1, 2], 3, card)
+    tr = probes["bank"]
+    require(tr._bank is not None and probes["host"]._bank is None,
+            "probes: the routes did not stage as asked")
+    _, first, n = next(padded_chunks(store.rows(np.asarray(val_idx)), 128))
+    enc_noise = tcfg.eval_noise_ratio
+    got = replay_quietly(
+        tr.encode_graphs(), "encode_chunks", model, (True, True),
+        chunk_encoder(model, tr._chunk_prep(True), True, True),
+        (torch.from_numpy(first).cuda(),), temps[2], enc_noise,
+        batch_seed(2, 0))
+    require(np.array_equal(got.cpu().numpy()[:n], tr.encode_frames(
+        model, first[:n], temps[2], seed=2, from_bank=True)),
+        "probes: the replay under sync debug differs")
+    launches = read_counts(counters)
+    captures = EncodeGraph.captures - captures0
+    print(f"check replays under torch.cuda.set_sync_debug_mode('error'): "
+          f"pixel run_frames, the SD encode and decode, the percep RBVAE "
+          f"encode, an evaluation chunk and a bank-route probe chunk each "
+          f"replayed and raised nothing, equal to the same calls from the "
+          f"host; the phase captured {captures} graphs, launched {launches} "
+          f"[{card}]")
+
+    # Times, each path on both routes (host clock to results on the host,
+    # medians taken in turns, ``route_times``; the encode with CUDA
+    # events).
+    gen = torch.Generator(device="cuda")
+    graphs = pipe.encode_graphs()
+
+    def graph_encode():
+        return graphs("run_frames", pipe.model, (pipe.hard, pipe.noise),
+                      pipe._codes, (x_dev,), pipe.temperature,
+                      pipe.noise_ratio, 5)
+
+    def eager_encode():
+        gen.manual_seed(5)
+        return pipe._codes((x_dev,), pipe.temperature, pipe.noise_ratio, gen)
+
+    with torch.inference_mode():
+        g_ms, g_sp = cuda_ms(graph_encode, iters=5)
+        e_ms, e_sp = cuda_ms(eager_encode, iters=5)
+        # One encode at a time, the host waiting for each: what a caller
+        # that reads every batch's codes pays.
+        lat = {True: [], False: []}
+        for i in range(20):
+            for graphed in ((True, False) if i % 2 == 0 else (False, True)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (graph_encode if graphed else eager_encode)()
+                torch.cuda.synchronize()
+                lat[graphed].append((time.perf_counter() - t0) * 1e3)
+    for route, fn in (("graph", graph_encode), ("eager", eager_encode)):
+        if route == "graph":
+            tb = traced_replays(graphs, "run_frames", [BATCH, 256, 256, 3],
+                                fn, 5, "the pixel encode's replays", card)
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                with torch.inference_mode(), profiling.trace(tmp):
+                    for _ in range(5):
+                        fn()
+                    torch.cuda.synchronize()
+                tb = trace_breakdown(Path(tmp), 5, by_op=False)
+        print(f"trace: 5 pixel encodes at batch {BATCH} on the {route} "
+              f"route: window {tb['window_ms']:.3f} ms, the card busy "
+              f"{tb['busy_share']:.1%}, device time {tb['kernel_ms_sum']:.3f} "
+              f"ms in {tb['device_events']} events; by kernel: "
+              + "; ".join(f"{name} x{n} {ms:.4f} ms"
+                          for name, n, ms in tb["top"]) + f" [{card}]")
+    print(f"time: the pixel encode on the card (uint8 frames on the card in, "
+          f"codes out: to_float01, model.encode with both kernels, the "
+          f"cast), batch {BATCH}: back to back (CUDA events) graph route "
+          f"{g_ms:.4f} ms (spread {g_sp:.3f}; a replay and the copy into "
+          f"its input), eager route {e_ms:.4f} ms (spread {e_sp:.3f}); one "
+          f"at a time, host clock to the card's end, median of 20 in turns: "
+          f"graph {statistics.median(lat[True]):.4f} ms, eager "
+          f"{statistics.median(lat[False]):.4f} ms [{card}]")
+    t = route_times(pipe, lambda: [pipe.run_frames(px, i) for i in range(5)])
+    print(f"time: pixel run_frames (uint8 256x256 host frames in, codes "
+          f"out), batch {BATCH}, 5 batches: graph route "
+          f"{5 * BATCH / t['graph']:.1f} frames/s, eager route "
+          f"{5 * BATCH / t['eager']:.1f} frames/s [{card}]")
+    test_idx = splits.flat("test")
+    test01 = store.gather(np.asarray(test_idx)).astype(np.float32) / 255.0
+    t = route_times(bundle, lambda: evaluate_consistency(
+        bundle, test01, test_idx, meta.flags, num_trials=1,
+        perturbations=(PERTURBATIONS[1],)))
+    t_chunk = route_times(bundle, lambda: bundle.encode(eval_px[:128]))
+    print(f"time: evaluation, one ({PERTURBATIONS[1]}, trial) of "
+          f"evaluate_consistency on {len(test_idx)} test frames: graph "
+          f"route {t['graph'] * 1e3:.2f} ms, eager {t['eager'] * 1e3:.2f} "
+          f"ms; RBVAEBundle.encode of 128 uint8 frames: graph "
+          f"{t_chunk['graph'] * 1e3:.3f} ms, eager "
+          f"{t_chunk['eager'] * 1e3:.3f} ms [{card}]")
+    t = route_times(tr, lambda: (tr.state_consistency(model, temps[2]),
+                                 tr.state_separation(model, temps[2])))
+    print(f"time: a probe (state_consistency + state_separation, "
+          f"{len(val_idx)} val frames, bank route): graph route "
+          f"{t['graph'] * 1e3:.2f} ms, eager {t['eager'] * 1e3:.2f} ms "
+          f"[{card}]")
+    for owner in (pipe, bundle, tr, probes["host"]):
+        owner.drop_graphs()
+
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--encode-capture-failure"], capture_output=True,
+                          text=True, cwd=ROOT, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    require(proc.returncode == 0, f"encode capture failure check: exit "
+            f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    failed = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"check an encode that reads the card on the host fails its "
+          f"capture, in a process of its own: raised {failed['raised']!r}; "
+          f"no graph: {failed['no_graph']}; launch counts as before the "
+          f"call: {failed['launches_unchanged']}; no codes returned "
+          f"(nothing encoded eagerly in its place) [{card}]")
+    require(failed["raised"] and "capturing the encode" in failed["raised"]
+            and "chip_smoke.py" in failed["raised"] and failed["no_graph"]
+            and failed["launches_unchanged"],
+            "a capture that fails must raise EncodeCaptureError naming the "
+            "cause and encode nothing")
+    print(f"graph route: phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+def encode_capture_failure_worker() -> None:
+    """``chip_smoke.py --encode-capture-failure``: the flagship pipeline on
+    the card whose encode reads its codes on the host (``float``), as a
+    graph's body must not. Its first call runs eagerly, where a read is
+    allowed; its second must raise ``EncodeCaptureError`` naming the read,
+    leave no graph, return no codes and leave the launch counts as they
+    were. Prints one JSON line. In a process of its own: a capture that
+    fails leaves the capture stream behind."""
+    from svtpu_torch.models.encode_graph import EncodeCaptureError
+    from svtpu_torch.ops.cuda_graph import Launches
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    pipe = VideoSymbolPipeline(*flagship(True))
+    codes = pipe._codes
+
+    def reads_on_host(*args):
+        z = codes(*args)
+        float(z.float().sum())
+        return z
+    pipe._codes = reads_on_host
+    frames = np.random.default_rng(0).integers(0, 256, (64, 256, 256, 3),
+                                               np.uint8)
+    pipe.run_frames(frames, 0)
+    launches = Launches()
+    before = launches.read()
+    raised = None
+    try:
+        pipe.run_frames(frames, 1)
+    except EncodeCaptureError as e:
+        raised = str(e)
+    print(json.dumps({
+        "raised": raised,
+        "no_graph": all(k["captures"] == 0
+                        for k in pipe._encode_graphs.report()),
+        "launches_unchanged": all(n == 0 and not any(by.values())
+                                  for n, by in launches.since(before))}))
 
 
 class MemoryStore:
@@ -2707,19 +3301,20 @@ def free_port() -> int:
 
 def kernel_label(name: str) -> str:
     """A device event's name without its template and argument lists."""
-    name = name.removeprefix("void ")
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
     for stop in ("<", "("):
         name = name.split(stop)[0]
     return name[:72]
 
 
-def trace_breakdown(logdir: Path, steps: int) -> dict:
+def trace_breakdown(logdir: Path, steps: int, by_op: bool = True) -> dict:
     """The device's busy share of a ``trace`` window and its top ops, from
     the Chrome trace ``trace`` wrote: device events are those of the
     "kernel", "gpu_memcpy" and "gpu_memset" categories, each named by the
-    operator that launched it (its "External id") and its kernel; the
-    window spans every event of the trace; busy time is the union of the
-    device intervals."""
+    operator that launched it (its "External id"; not with ``by_op=False``,
+    as a graph's replay launches no operator) and its kernel; the window
+    spans every event of the trace; busy time is the union of the device
+    intervals."""
     path = max(logdir.glob("*.json"), key=lambda p: p.stat().st_mtime)
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("ph") == "X" and "dur" in e]
@@ -2727,8 +3322,9 @@ def trace_breakdown(logdir: Path, steps: int) -> dict:
            if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
     dev = sorted(
         (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-         f"{ops.get(e.get('args', {}).get('External id'), '?')} -> "
-         f"{kernel_label(e.get('name', '?'))}") for e in events
+         (f"{ops.get(e.get('args', {}).get('External id'), '?')} -> "
+          if by_op else "") + kernel_label(e.get("name", "?")))
+        for e in events
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     require(len(dev) > 0, "trace: no device events (CUPTI recorded none)")
     lo = min(float(e["ts"]) for e in events)
@@ -2751,7 +3347,8 @@ def trace_breakdown(logdir: Path, steps: int) -> dict:
             "busy_share": busy / (hi - lo), "device_events": len(dev),
             "kernel_ms_sum": sum(t - s for s, t, _ in dev) / 1e3,
             "steps": steps,
-            "top": [(name, n, tot / 1e3) for name, (n, tot) in top]}
+            "top": [(name, n, tot / 1e3) for name, (n, tot) in top],
+            "counts": {name: n for name, (n, _) in by_name.items()}}
 
 
 def phase_rest_path(card: str) -> dict:
@@ -4024,7 +4621,7 @@ def phase_multi_card(card: str) -> dict:
 
         t_a = time.perf_counter()
         launched = {k: launch(k) for k in list(runs)[:1]}
-        walls, rank_launches, rank_graphs = {}, {}, {}
+        walls, rank_launches, rank_graphs, rank_encodes = {}, {}, {}, {}
         try:
             # The commands without a launcher, in this process meanwhile,
             # under PyTorch's TF32 defaults, as the launched ranks have them.
@@ -4103,6 +4700,15 @@ def phase_multi_card(card: str) -> dict:
                     f"multi card: {kind}: the ranks' step graphs "
                     f"{rank_graphs[kind]}, expected {want_graphs(kind)} on "
                     f"each")
+                # An embed's 16 frames are two SD batches a rank: the first
+                # eager, the second captured and replayed (encode route).
+                rank_encodes[kind] = [r["encode_graphs"] for r in ranks]
+                require(not kind.startswith("embed") or all(
+                    g == {"captures": 1, "replays": 1}
+                    for g in rank_encodes[kind]),
+                    f"multi card: {kind}: the ranks' encode graphs "
+                    f"{rank_encodes[kind]}, expected one capture and one "
+                    f"replay on each")
                 for c in rank_launches[kind]:
                     total = add_counts(total, c)
         finally:
@@ -4154,7 +4760,10 @@ def phase_multi_card(card: str) -> dict:
               f" (a train: {want_graphs('train')} on each rank, its "
               f"{train_steps} steps after {WARMUP_STEPS} eager warm-up "
               f"steps; the commands without a launcher none, on the eager "
-              f"route) [{card}]")
+              f"route); each rank's encode graphs (captures, replays): "
+              f"{ {k: [(g['captures'], g['replays']) for g in v] for k, v in rank_encodes.items()} }"
+              f" (an embed: one capture and one replay on each rank) "
+              f"[{card}]")
         errs, exact, finite, worst = {}, {}, True, {}
         for kind in train_kinds:
             got, _ = BestCheckpointer(run_dir / kind).restore("latest")
@@ -4359,7 +4968,7 @@ def instance(symbol: str) -> str:
 
 
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
-                       percep: dict, simple: dict, wide: dict,
+                       percep: dict, simple: dict, wide: dict, graphs: dict,
                        train: dict, evaluation: dict, cli: dict,
                        video: dict, rest: dict, multi: dict) -> list:
     """Each kernel's row of the kernels line: its time, its plain
@@ -4400,7 +5009,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/fused_conv01.cu",
         replaces="svtpu/ops/conv_trunk_pallas.py:106",
         launches=sum(d["launches"]["fused_conv01"]
-                     for d in (main, wide, train, cli, video, rest, multi))
+                     for d in (main, wide, graphs, train, cli, video, rest,
+                               multi))
         + eval_launches("fused_conv01"),
         max_abs_err=errs["fused_conv01"]["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=max(bound.values()),
@@ -4413,7 +5023,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f"{max(bound.values()):.3f} ms ({max(bound, key=bound.get)}), "
           f"launches per encode {main['per_encode']['fused_conv01']:.0f} "
           f"(pixel {main['launches']['fused_conv01']}, wide latent "
-          f"{wide['launches']['fused_conv01']}, train probes "
+          f"{wide['launches']['fused_conv01']}, graph routes "
+          f"{graphs['launches']['fused_conv01']}, train probes "
           f"{train['launches']['fused_conv01']}, evaluation "
           f"{eval_launches('fused_conv01')}, cli "
           f"{cli['launches']['fused_conv01']}, video "
@@ -4429,6 +5040,12 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         logits, seed, TEMPERATURE, 0.1)
     ms, sp = cuda_ms(sample, iters=50)
     dev_ms, dev_sp = graph_ms(sample)
+    # The temperature and noise scale read from the card, as the encode
+    # graphs launch it.
+    temp_t = torch.tensor(TEMPERATURE, dtype=torch.float32, device="cuda")
+    scale_t = torch.tensor(0.1, dtype=torch.float32, device="cuda")
+    ptr_ms, ptr_sp = graph_ms(lambda: binary_concrete_fused(
+        logits, seed, temp_t, scale_t))
     plain_ms, _ = cuda_ms(lambda: binary_concrete_fused_plain(
         logits, 9, TEMPERATURE, 0.1), iters=20)
     n = logits.numel()
@@ -4438,8 +5055,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
              "bytes": 2 * 2 * n / PEAK_BYTES * 1e3}
     launches = {k: d["launches"]["binary_concrete"] for k, d in
                 (("pixel", main), ("percep", percep), ("simple", simple),
-                 ("wide", wide), ("cli", cli), ("video", video),
-                 ("rest", rest), ("multi card", multi))}
+                 ("wide", wide), ("graph routes", graphs), ("cli", cli),
+                 ("video", video), ("rest", rest), ("multi card", multi))}
     launches["evaluation"] = eval_launches("binary_concrete")
     rows.append(dict(
         name="binary_concrete", route="cuda",
@@ -4452,7 +5069,9 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     print(f"time: binary_concrete bf16 [{BATCH},1,{LATENT}] noisy hard, seed "
           f"tensor on the card: wrapper {ms:.4f} ms (50 back-to-back calls, "
           f"spread {sp:.3f}), device {dev_ms:.4f} ms (a CUDA graph of 50 "
-          f"launches, spread {dev_sp:.3f}), plain {plain_ms:.4f} ms, bound "
+          f"launches, spread {dev_sp:.3f}; the temperature and noise scale "
+          f"read from the card {ptr_ms:.4f} ms, spread {ptr_sp:.3f}), plain "
+          f"{plain_ms:.4f} ms, bound "
           f"{max(bound.values()):.2e} ms ({max(bound, key=bound.get)}), "
           f"library none, launches by path {launches} [{card}]")
 
@@ -4465,6 +5084,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     with torch.inference_mode():
         ms, sp = cuda_ms(fused, iters=50)
         dev_ms, dev_sp = graph_ms(fused)
+        ptr_ms, ptr_sp = graph_ms(lambda: lstm_binary_concrete(
+            lstm, logits, seed, temp_t, scale_t))
         plain_ms, _ = cuda_ms(lambda: lstm_binary_concrete_plain(
             lstm, logits, 9, TEMPERATURE, 0.1), iters=20)
         # Library yardstick: nn.LSTM's forward alone (no sampler), in the
@@ -4486,9 +5107,9 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     usage = {fn: r for fn, r in build.items()
              if "lstm_binary_concrete_kernel" in fn}
     launches = {k: d["launches"]["lstm_binary_concrete"] for k, d in
-                (("pixel", main), ("percep", percep), ("train", train),
-                 ("cli", cli), ("video", video), ("rest", rest),
-                 ("multi card", multi))}
+                (("pixel", main), ("percep", percep),
+                 ("graph routes", graphs), ("train", train), ("cli", cli),
+                 ("video", video), ("rest", rest), ("multi card", multi))}
     launches["percep train"] = \
         train["percep_launches"]["lstm_binary_concrete"]
     launches["evaluation"] = eval_launches("lstm_binary_concrete")
@@ -4507,7 +5128,9 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     print(f"time: lstm_binary_concrete bf16 [{B},{T},{H}], {layers} layers, "
           f"noisy hard, seed tensor on the card: wrapper {ms:.4f} ms (50 "
           f"back-to-back calls, spread {sp:.3f}), device {dev_ms:.4f} ms (a "
-          f"CUDA graph of 50 launches, spread {dev_sp:.3f}), plain "
+          f"CUDA graph of 50 launches, spread {dev_sp:.3f}; the "
+          f"temperature and noise scale read from the card {ptr_ms:.4f} "
+          f"ms, spread {ptr_sp:.3f}), plain "
           f"{plain_ms:.4f} ms (the port's LSTM + binary_concrete_fused_plain)"
           f", nn.LSTM forward alone in {lib_dt} (cuDNN, no sampler) "
           f"{lib_ms:.4f} ms, bound {max(bound.values()):.2e} ms "
@@ -4537,6 +5160,7 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
         source="svtpu_torch/csrc/flash_attention.cu",
         replaces="svtpu/ops/attention.py:26",
         launches=percep["launches"]["flash_attention"]
+        + graphs["launches"]["flash_attention"]
         + eval_launches("flash_attention")
         + cli["launches"]["flash_attention"]
         + video["launches"]["flash_attention"]
@@ -4554,7 +5178,8 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f", bound {max(bound.values()):.3f} ms "
           f"({max(bound, key=bound.get)}: {flops / 1e12:.3f} TFLOP), "
           f"launches on the percep path "
-          f"{percep['launches']['flash_attention']}, evaluation "
+          f"{percep['launches']['flash_attention']}, graph routes "
+          f"{graphs['launches']['flash_attention']}, evaluation "
           f"{eval_launches('flash_attention')}, cli "
           f"{cli['launches']['flash_attention']}, video "
           f"{video['launches']['flash_attention']}, rest "
@@ -4583,6 +5208,7 @@ def main() -> None:
     simple = phase_simple_path(card)
     wide = phase_wide_path(card)
     percep = phase_percep_path(card)
+    graphs = phase_encode_graphs(card, percep.pop("weights"))
     train = phase_train_path(card)
     evaluation = phase_eval_path(card)
     cli = phase_cli_path(card)
@@ -4590,8 +5216,8 @@ def main() -> None:
     rest = phase_rest_path(card)
     multi = phase_multi_card(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
-                              wide, train, evaluation, cli, video, rest,
-                              multi)
+                              wide, graphs, train, evaluation, cli, video,
+                              rest, multi)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "
@@ -4611,5 +5237,7 @@ if __name__ == "__main__":
         multi_card_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--capture-failure"]:
         capture_failure_worker()
+    elif sys.argv[1:2] == ["--encode-capture-failure"]:
+        encode_capture_failure_worker()
     else:
         main()

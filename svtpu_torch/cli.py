@@ -793,11 +793,13 @@ def _write_launches(directory) -> None:
     """This rank's kernel launches as ``launches_<rank>.json`` under
     ``directory``: each kernel wrapper's ``.launches`` since the process
     started (a launched command's own), ``flash_attention``'s by kernel, and
-    the train step graphs captured and replayed, for a caller that cannot
-    read the counts of another process."""
+    the train step's and the encodes' graphs captured and replayed (a
+    replay's launches are in the counts), for a caller that cannot read the
+    counts of another process."""
     from svtpu_torch.ops.attention import flash_attention
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.models.encode_graph import EncodeGraph
     from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
     from svtpu_torch.training.step_graph import StepGraph
 
@@ -810,7 +812,9 @@ def _write_launches(directory) -> None:
         "launches": counts,
         "flash_attention_by_kernel": dict(flash_attention.launches_by_kernel),
         "step_graphs": {"captures": StepGraph.captures,
-                        "replays": StepGraph.replays}}))
+                        "replays": StepGraph.replays},
+        "encode_graphs": {"captures": EncodeGraph.captures,
+                          "replays": EncodeGraph.replays}}))
 
 
 def main(argv=None):

@@ -14,7 +14,8 @@
 // svtpu_torch/ops/binarize_cuda.py, so the two can be compared exactly.
 // The seed is read from device memory when the wrapper passes a pointer to
 // it (a seed drawn on the card never visits the host), else taken from the
-// launch. The per-element arithmetic lives in binary_concrete.cuh, which
+// launch; so are the temperature and the noise scale, which a CUDA graph of
+// the encode reads from tensors the caller writes before each replay. The per-element arithmetic lives in binary_concrete.cuh, which
 // the encoder LSTM's fused sampler (lstm_binary_concrete.cu) shares.
 //
 // Bound on this card: bytes. It reads each logit once and writes one value
@@ -37,11 +38,14 @@ namespace {
 template <typename T>
 __global__ void binary_concrete_kernel(const T* __restrict__ x, T* __restrict__ y,
                                        long long n, const long long* seed_ptr,
-                                       unsigned long long seed, float temp,
-                                       float scale, float eps, int hard,
-                                       int noisy) {
+                                       unsigned long long seed,
+                                       const float* temp_ptr, float temp,
+                                       const float* scale_ptr, float scale,
+                                       float eps, int hard, int noisy) {
   const long long groups = (n + 3) / 4;
   const uint2 key = svt::philox_key(noisy ? svt::load_seed(seed_ptr, seed) : 0ull);
+  temp = svt::load_scalar(temp_ptr, temp);
+  scale = svt::load_scalar(scale_ptr, scale);
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        g < groups; g += (long long)gridDim.x * blockDim.x) {
     unsigned bits[4] = {0u, 0u, 0u, 0u};
@@ -61,34 +65,39 @@ __global__ void binary_concrete_kernel(const T* __restrict__ x, T* __restrict__ 
 
 template <typename T>
 int launch(const void* x, void* y, long long n, const long long* seed_ptr,
-           unsigned long long seed, float temp, float scale, float eps,
-           int hard, int noisy, cudaStream_t stream) {
+           unsigned long long seed, const float* temp_ptr, float temp,
+           const float* scale_ptr, float scale, float eps, int hard,
+           int noisy, cudaStream_t stream) {
   const int threads = 256;
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + threads - 1) / threads;
   if (blocks > 132 * 64) blocks = 132 * 64;
   if (blocks < 1) blocks = 1;
   binary_concrete_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, seed_ptr, seed, temp,
-      scale, eps, hard, noisy);
+      static_cast<const T*>(x), static_cast<T*>(y), n, seed_ptr, seed,
+      temp_ptr, temp, scale_ptr, scale, eps, hard, noisy);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. seed_ptr: a one-element
-// int64 in device memory holding the seed, or null to use `seed`.
-// Returns cudaGetLastError().
+// int64 in device memory holding the seed, or null to use `seed`. temp_ptr,
+// scale_ptr: a float32 in device memory holding the temperature or the
+// noise scale, or null to use `temp` or `scale`. Returns cudaGetLastError().
 extern "C" int svt_binary_concrete(const void* x, void* y, long long n, int dtype,
                                    const void* seed_ptr, unsigned long long seed,
-                                   float temp, float scale, float eps, int hard,
-                                   int noisy, void* stream) {
+                                   const void* temp_ptr, float temp,
+                                   const void* scale_ptr, float scale, float eps,
+                                   int hard, int noisy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* sp = static_cast<const long long*>(seed_ptr);
+  const float* tp = static_cast<const float*>(temp_ptr);
+  const float* cp = static_cast<const float*>(scale_ptr);
   switch (dtype) {
-    case 0: return launch<float>(x, y, n, sp, seed, temp, scale, eps, hard, noisy, s);
-    case 1: return launch<__nv_bfloat16>(x, y, n, sp, seed, temp, scale, eps, hard, noisy, s);
-    case 2: return launch<__half>(x, y, n, sp, seed, temp, scale, eps, hard, noisy, s);
+    case 0: return launch<float>(x, y, n, sp, seed, tp, temp, cp, scale, eps, hard, noisy, s);
+    case 1: return launch<__nv_bfloat16>(x, y, n, sp, seed, tp, temp, cp, scale, eps, hard, noisy, s);
+    case 2: return launch<__half>(x, y, n, sp, seed, tp, temp, cp, scale, eps, hard, noisy, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -50,6 +50,14 @@ __device__ __forceinline__ unsigned long long load_seed(const long long* seed_pt
   return seed_ptr ? (unsigned long long)__ldg(seed_ptr) : seed;
 }
 
+// A scalar argument (the temperature, the noise scale): read from device
+// memory when the caller gave a pointer, else the value passed with the
+// launch. A CUDA graph bakes a launch's values in; a pointer lets one
+// graph serve every value the caller writes there between replays.
+__device__ __forceinline__ float load_scalar(const float* ptr, float value) {
+  return ptr ? __ldg(ptr) : value;
+}
+
 // y = sigmoid((v + scale * logistic(u)) / temp) in f32, then the 0.5
 // threshold if `hard`. `bits` is the element's Philox word (unused when
 // not `noisy`).

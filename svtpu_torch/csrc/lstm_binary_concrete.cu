@@ -40,7 +40,9 @@
 // where it stays in L2) and is overwritten in place by the next layer; the
 // last layer writes `seq` only when the caller asks for h, and always the
 // codes. The seed is read from device memory when given a pointer, so the
-// host never waits for it.
+// host never waits for it; so are the temperature and the noise scale
+// when given pointers, so that one CUDA graph of the encode serves every
+// temperature.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -117,8 +119,9 @@ lstm_binary_concrete_kernel(LayerWeights w, int layers, Shape s,
                             const T* __restrict__ x, T* seq, T* __restrict__ codes,
                             const long long* seed_ptr, unsigned long long seed,
                             int B, int steps, int residual, int write_h,
-                            float temp, float scale, float eps, int hard,
-                            int noisy) {
+                            const float* temp_ptr, float temp,
+                            const float* scale_ptr, float scale, float eps,
+                            int hard, int noisy) {
   extern __shared__ __align__(16) float smem[];
   const int H = s.H, G = 4 * H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -127,6 +130,8 @@ lstm_binary_concrete_kernel(LayerWeights w, int layers, Shape s,
   const int b = blockIdx.x * kWarps + warp;
   const bool active = b < B;
   const uint2 key = svt::philox_key(noisy ? svt::load_seed(seed_ptr, seed) : 0ull);
+  temp = svt::load_scalar(temp_ptr, temp);
+  scale = svt::load_scalar(scale_ptr, scale);
 
   // Zero the padding columns (k >= H) of every resident layer once; the
   // loads never write them.
@@ -235,8 +240,9 @@ lstm_binary_concrete_kernel(LayerWeights w, int layers, Shape s,
 template <typename T>
 int launch(const LayerWeights& w, int layers, int H, const void* x, void* seq,
            void* codes, const long long* seed_ptr, unsigned long long seed,
-           int B, int steps, int residual, int write_h, float temp,
-           float scale, float eps, int hard, int noisy, cudaStream_t stream) {
+           int B, int steps, int residual, int write_h, const float* temp_ptr,
+           float temp, const float* scale_ptr, float scale, float eps,
+           int hard, int noisy, cudaStream_t stream) {
   Shape s;
   s.H = H;
   s.KP = (H + 3) / 4 * 4;
@@ -255,7 +261,7 @@ int launch(const LayerWeights& w, int layers, int H, const void* x, void* seq,
     lstm_binary_concrete_kernel<T, 2><<<blocks, kThreads, smem, stream>>>(
         w, layers, s, static_cast<const T*>(x), static_cast<T*>(seq),
         static_cast<T*>(codes), seed_ptr, seed, B, steps, residual, write_h,
-        temp, scale, eps, hard, noisy);
+        temp_ptr, temp, scale_ptr, scale, eps, hard, noisy);
   } else {
     e = cudaFuncSetAttribute(lstm_binary_concrete_kernel<T, 1>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -263,7 +269,7 @@ int launch(const LayerWeights& w, int layers, int H, const void* x, void* seq,
     lstm_binary_concrete_kernel<T, 1><<<blocks, kThreads, smem, stream>>>(
         w, layers, s, static_cast<const T*>(x), static_cast<T*>(seq),
         static_cast<T*>(codes), seed_ptr, seed, B, steps, residual, write_h,
-        temp, scale, eps, hard, noisy);
+        temp_ptr, temp, scale_ptr, scale, eps, hard, noisy);
   }
   return (int)cudaGetLastError();
 }
@@ -277,14 +283,17 @@ int launch(const LayerWeights& w, int layers, int H, const void* x, void* seq,
 // for the intermediate layers and, with write_h, the last layer's output;
 // may be null when layers == 1 and not write_h. codes: [B, steps, H].
 // seed_ptr: a one-element int64 in device memory holding the seed, or null
-// to use `seed`. Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// to use `seed`. temp_ptr, scale_ptr: a float32 in device memory holding
+// the temperature or the noise scale, or null to use `temp` or `scale`.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a
 // shape it does not take).
 extern "C" int svt_lstm_binary_concrete(
     const void* const* w_ih, const void* const* w_hh, const void* const* b_ih,
     const void* const* b_hh, int layers, int H, const void* x, void* seq,
     void* codes, const void* seed_ptr, unsigned long long seed, int B,
-    int steps, int dtype, int residual, int write_h, float temp, float scale,
-    float eps, int hard, int noisy, void* stream) {
+    int steps, int dtype, int residual, int write_h, const void* temp_ptr,
+    float temp, const void* scale_ptr, float scale, float eps, int hard,
+    int noisy, void* stream) {
   if (layers < 1 || layers > kMaxLayers || H < 1 || H > kMaxH || B < 1 ||
       steps < 1 || ((layers > 1 || write_h) && seq == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -299,12 +308,15 @@ extern "C" int svt_lstm_binary_concrete(
     w.w_ih[l] = w.w_hh[l] = w.b_ih[l] = w.b_hh[l] = nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* sp = static_cast<const long long*>(seed_ptr);
+  const float* tp = static_cast<const float*>(temp_ptr);
+  const float* cp = static_cast<const float*>(scale_ptr);
   switch (dtype) {
     case 0: return launch<float>(w, layers, H, x, seq, codes, sp, seed, B, steps,
-                                 residual, write_h, temp, scale, eps, hard, noisy, s);
+                                 residual, write_h, tp, temp, cp, scale, eps,
+                                 hard, noisy, s);
     case 1: return launch<__nv_bfloat16>(w, layers, H, x, seq, codes, sp, seed, B,
-                                         steps, residual, write_h, temp, scale,
-                                         eps, hard, noisy, s);
+                                         steps, residual, write_h, tp, temp, cp,
+                                         scale, eps, hard, noisy, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

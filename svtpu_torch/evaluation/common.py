@@ -10,7 +10,10 @@ import torch
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig
 from svtpu_torch.data.segments import assign_label
+from svtpu_torch.models.encode_graph import (EncodeGraph, GraphedEncodes,
+                                             run_encode)
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.training.checkpoints import BestCheckpointer
 
 
@@ -26,40 +29,62 @@ def padded_chunks(frames: np.ndarray, chunk: int):
         yield i, part, n
 
 
+def chunk_encoder(model: Seq2SeqBinaryVAE,
+                  prep: Callable[[torch.Tensor], torch.Tensor], hard: bool,
+                  noise: bool):
+    """The device work of one chunk (``svtpu``'s jitted ``enc``): a chunk
+    on the card → ``prep`` → ``model.encode`` as T=1 sequences → float
+    codes ``[chunk, latent]``, as an ``EncodeGraph`` body."""
+
+    def body(inputs, temperature, noise_ratio, generator):
+        z = model.encode(prep(inputs[0])[:, None], temperature, hard,
+                         noise_ratio, deterministic=not noise,
+                         generator=generator)
+        return z[:, 0].float()
+
+    return body
+
+
 @torch.no_grad()
 def encode_chunks(model: Seq2SeqBinaryVAE, frames: np.ndarray,
-                  load: Callable[[np.ndarray], torch.Tensor],
+                  prep: Callable[[torch.Tensor], torch.Tensor],
                   temperature: float, hard: bool = True, noise: bool = True,
                   noise_ratio: float = 0.1, seed: int = 0,
-                  chunk: int = 128) -> np.ndarray:
+                  chunk: int = 128, graphs: Optional[EncodeGraph] = None
+                  ) -> np.ndarray:
     """Batched single-frame encode → codes ``[N, latent]`` on the host.
 
     Each frame is a T=1 sequence, ``chunk`` frames at a time
     (``padded_chunks``); the chunk at offset ``i`` draws its noise from
-    ``batch_seed(seed, i)`` on a generator on the model's device. ``load``
-    maps a chunk of ``frames`` to the model's float input on its device.
-    ``model.encode`` runs the kernels the model config asks for.
+    ``batch_seed(seed, i)`` on a generator on the model's device. A chunk
+    of ``frames`` goes to the card as it is, and ``prep`` maps it there to
+    the model's float input. ``model.encode`` runs the kernels the model
+    config asks for. ``graphs``: the chunks run as its CUDA graphs
+    (``svtpu``'s jitted encode, the temperature and noise ratio traced,
+    ``hard`` and ``noise`` static). None: eagerly.
     """
     device = next(model.parameters()).device
+    body = chunk_encoder(model, prep, hard, noise)
     out = []
     for i, part, n in padded_chunks(frames, chunk):
-        gen = None
-        if noise:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(batch_seed(seed, i))
-        z = model.encode(load(part)[:, None], temperature, hard, noise_ratio,
-                         deterministic=not noise, generator=gen)
-        out.append(z[:n, 0].float().cpu().numpy())
+        z = run_encode(graphs, device, "encode_chunks", model,
+                       (hard, noise), body,
+                       (torch.from_numpy(np.ascontiguousarray(part)),),
+                       temperature, noise_ratio,
+                       batch_seed(seed, i) if noise else None)
+        out.append(z[:n].cpu().numpy())
     return np.concatenate(out) if out else np.zeros((0,))
 
 
-class RBVAEBundle:
+class RBVAEBundle(GraphedEncodes):
     """A model and its weights on one device, the unit every evaluation
     consumes.
 
     ``state_dict``: the reference torch layout the port's model holds (a
     reference ``.pt`` state dict loads as it is). ``device``: CUDA unless
-    ``"cpu"`` is asked for (raises when there is no card).
+    ``"cpu"`` is asked for (raises when there is no card). On a card
+    ``encode`` runs as a CUDA graph a chunk shape (``graph_route``);
+    ``drop_graphs()`` frees them.
     """
 
     def __init__(self, cfg: RBVAEConfig, state_dict, name: str = "rbvae",
@@ -69,6 +94,7 @@ class RBVAEBundle:
         self.device = resolve_device(device)
         self.model = Seq2SeqBinaryVAE(cfg, device=self.device)
         self.model.load_state_dict(state_dict)
+        self._graphed = graph_route(self.device) == "graph"
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, cfg: RBVAEConfig,
@@ -79,11 +105,16 @@ class RBVAEBundle:
         tree, _meta = BestCheckpointer(ckpt_dir).restore(which)
         return cls(cfg, tree["model"], name=name, device=device)
 
-    def load_frames(self, part: np.ndarray) -> torch.Tensor:
-        """Host frames → float input on the device; uint8 is scaled to
-        [0, 1] as ``svtpu``'s bundle scales it (``/ 255``)."""
-        x = torch.from_numpy(np.ascontiguousarray(part)).to(self.device)
+    @staticmethod
+    def prep(x: torch.Tensor) -> torch.Tensor:
+        """Frames on the device → the model's float input; uint8 is scaled
+        to [0, 1] as ``svtpu``'s bundle scales it (``/ 255``)."""
         return x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+
+    def load_frames(self, part: np.ndarray) -> torch.Tensor:
+        """Host frames → the model's float input on the device (``prep``)."""
+        return self.prep(torch.from_numpy(np.ascontiguousarray(part))
+                         .to(self.device))
 
     def encode(self, frames: np.ndarray, temperature: float = 0.2,
                hard: bool = True, noise: bool = True,
@@ -92,9 +123,9 @@ class RBVAEBundle:
         """Batched single-frame encode → ``[N, latent]`` float codes on the
         host (the reference eval protocol: temperature 0.2, hard, noise
         on), ``chunk`` frames a step (see ``encode_chunks``)."""
-        return encode_chunks(self.model, np.asarray(frames), self.load_frames,
+        return encode_chunks(self.model, np.asarray(frames), self.prep,
                              temperature, hard, noise, noise_ratio, seed,
-                             chunk)
+                             chunk, self.encode_graphs())
 
 
 def labels_of(frame_indices, flags, labels: Optional[np.ndarray] = None):

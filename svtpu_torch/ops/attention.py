@@ -109,6 +109,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     CPU tensor: the plain version. CUDA tensor: the kernel (any N; the
     ragged tail is masked inside it), or an exception — there is no
     fallback. Inference only: ``attention`` carries the gradient.
+
+    Under a CUDA graph's capture (the SD first stage's encode and decode,
+    ``models/encode_graph.py``) the D = 512 kernel's TMA maps are encoded
+    on the host from ``q``, ``k`` and ``v``'s addresses, which then lie in
+    the graph's pool and stay fixed, and the maps travel in the captured
+    launch's parameters: every replay reads the tensors the capture made.
     """
     _check(q, k, v)
     if q.device.type == "cpu":

@@ -15,7 +15,12 @@ kernel for a CUDA tensor; it counts its kernel launches in
 ``binary_concrete_fused.launches``. The seed is a Python int or a
 one-element int64 tensor on the logits' device, which the kernel reads
 where it lies: a seed drawn on the card never makes the host wait for it.
-Only the plain version reads a seed tensor's value on the host.
+Only the plain version reads a seed tensor's value on the host. The
+temperature and the noise scale are each a Python number or a 0-dim
+float32 tensor on the logits' device, which the kernel reads where it lies:
+a CUDA graph of the encode bakes a number in, and reads a tensor that the
+caller writes before each replay. Both give the kernel the same float32
+(``float(v)`` rounded to float32 by ctypes, or the tensor made from it).
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ from svtpu_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SIGNATURES = {"svt_binary_concrete": (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_float, ctypes.c_float,
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
+    ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_float,
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p])}
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -69,18 +75,26 @@ def philox_uniform(n: int, seed: int, device=None) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def _f32(v, device) -> torch.Tensor:
+    """A number or a 0-dim tensor as the float32 the kernel computes with."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.tensor(v, dtype=torch.float32)
+
+
 def binary_concrete_fused_plain(logits: torch.Tensor, seed,
                                 temperature=0.5, noise_scale=1.0,
                                 hard: bool = True, eps: float = 1e-8,
                                 noisy: bool = True) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch, on any device. ``seed``:
-    an int or a one-element tensor, whose value it reads on the host."""
+    an int or a one-element tensor, whose value it reads on the host;
+    ``temperature``, ``noise_scale``: numbers or 0-dim tensors."""
     x = logits.to(torch.float32)
     if noisy:
         u = philox_uniform(x.numel(), int(seed), x.device).reshape(x.shape)
         noise = torch.log(u + eps) - torch.log(1.0 - u + eps)
-        x = x + torch.tensor(noise_scale, dtype=torch.float32) * noise
-    y = torch.sigmoid(x / torch.tensor(temperature, dtype=torch.float32))
+        x = x + _f32(noise_scale, x.device) * noise
+    y = torch.sigmoid(x / _f32(temperature, x.device))
     if hard:
         y = (y > 0.5).to(torch.float32)
     return y.to(logits.dtype)
@@ -113,6 +127,20 @@ def seed_args(seed, device) -> tuple:
     return None, seed
 
 
+def scalar_args(value, device, what: str) -> tuple:
+    """The launchers' ``(ptr, value)`` pair for the temperature or the
+    noise scale: a 0-dim float32 tensor on ``device`` by its address (its
+    value is never read here), a number by value."""
+    if isinstance(value, torch.Tensor):
+        if (value.dtype != torch.float32 or value.dim() != 0
+                or value.device != device):
+            raise ValueError(f"the {what} tensor must be a 0-dim float32 on "
+                             f"{device}, got {value.dtype} "
+                             f"{tuple(value.shape)} on {value.device}")
+        return _build.plain(value).data_ptr(), 0.0
+    return None, float(value)
+
+
 def binary_concrete_fused(logits: torch.Tensor, seed,
                           temperature=0.5, noise_scale=1.0,
                           hard: bool = True, eps: float = 1e-8,
@@ -122,6 +150,8 @@ def binary_concrete_fused(logits: torch.Tensor, seed,
     CPU tensor: the plain version. CUDA tensor: the kernel, or an
     exception — there is no fallback. ``seed``: an int, or a one-element
     int64 tensor on the logits' device (see ``check_seed``).
+    ``temperature``, ``noise_scale``: numbers, or 0-dim float32 tensors on
+    the logits' device (see ``scalar_args``).
     """
     seed = check_seed(seed)
     if logits.device.type == "cpu":
@@ -132,13 +162,17 @@ def binary_concrete_fused(logits: torch.Tensor, seed,
     if logits.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {logits.dtype}")
     seed_ptr, seed_val = seed_args(seed, logits.device)
+    temp_ptr, temp_val = scalar_args(temperature, logits.device,
+                                     "temperature")
+    scale_ptr, scale_val = scalar_args(noise_scale, logits.device,
+                                       "noise scale")
     x = _build.plain(logits).contiguous()
     out = torch.empty_like(x)
     fn = _build.load("binary_concrete", _SIGNATURES).svt_binary_concrete
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _DTYPES[x.dtype],
-                 seed_ptr, seed_val, float(temperature), float(noise_scale),
-                 float(eps), int(hard), int(noisy),
+                 seed_ptr, seed_val, temp_ptr, temp_val, scale_ptr,
+                 scale_val, float(eps), int(hard), int(noisy),
                  _build.stream_handle(x.device))
     _build.check(err, "binary_concrete")
     binary_concrete_fused.launches += 1

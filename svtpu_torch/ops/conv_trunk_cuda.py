@@ -93,7 +93,15 @@ def kernel_weights(dt, w0, b0, w1, b1) -> tuple:
     """``(w0, b0, w1, b1)`` as the kernel for ``dt`` reads them: bf16 in
     the tensor-core GEMM layouts (``pack_w0``, ``pack_w1``), f32 in HWIO
     (each (tap, input channel) row holds the 64 output channels); ``b1``
-    in f32. The wrapper packs on every call."""
+    in f32. The wrapper packs on every call.
+
+    Inside a CUDA graph of the encode (``models/encode_graph.py``) the
+    packing is captured as device work that reads the parameters where
+    they lie, so every replay packs the current weights: the trainer's
+    probes replay between Adam's in-place updates. A cache of packed
+    weights would leave a replay reading stale ones; keep none.
+    ``_w1_chunks``' index tensors are made on the device, in the graph's
+    pool, which a capture allows."""
     if dt == torch.bfloat16:
         w0k, w1k = pack_w0(w0), pack_w1(w1)
     else:

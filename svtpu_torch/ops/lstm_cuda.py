@@ -22,7 +22,10 @@ gradient.
 ``lstm_binary_concrete`` takes the plain version for a CPU tensor and the
 kernel for a CUDA tensor; it counts its kernel launches in
 ``lstm_binary_concrete.launches``. Its seed is an int or a one-element int64
-tensor on the input's device, which the kernel reads where it lies.
+tensor on the input's device, and its temperature and noise scale numbers
+or 0-dim float32 tensors there (``binarize_cuda.scalar_args``); the kernel
+reads each tensor where it lies, so one CUDA graph of the encode serves
+every temperature.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 
 from svtpu_torch.ops import _build
 from svtpu_torch.ops.binarize_cuda import (binary_concrete_fused_plain,
-                                           check_seed, seed_args)
+                                           check_seed, scalar_args, seed_args)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HIDDEN = 64
@@ -41,9 +44,9 @@ _SIGNATURES = {"svt_lstm_binary_concrete": (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p])}
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 
 
 def layer_params(lstm, k: int) -> tuple:
@@ -125,6 +128,8 @@ def lstm_binary_concrete(lstm, x: torch.Tensor, seed, temperature=0.5,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     seed_ptr, seed_val = seed_args(seed, x.device)
+    temp_ptr, temp_val = scalar_args(temperature, x.device, "temperature")
+    scale_ptr, scale_val = scalar_args(noise_scale, x.device, "noise scale")
     xk = _build.plain(x.to(lstm.dtype)).contiguous()
     B, T, H = xk.shape
     L = lstm.num_layers
@@ -140,7 +145,7 @@ def lstm_binary_concrete(lstm, x: torch.Tensor, seed, temperature=0.5,
                      None if seq is None else seq.data_ptr(),
                      codes.data_ptr(), seed_ptr, seed_val, B, T,
                      _DTYPES[lstm.dtype], int(lstm.residual), int(return_h),
-                     float(temperature), float(noise_scale), float(eps),
+                     temp_ptr, temp_val, scale_ptr, scale_val, float(eps),
                      int(hard), int(noisy), _build.stream_handle(xk.device))
         _build.check(err, "lstm_binary_concrete")
         lstm_binary_concrete.launches += 1

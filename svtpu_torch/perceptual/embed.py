@@ -8,7 +8,11 @@ its mode. Latents come back as NHWC ``[N, H/8, W/8, 4]`` float32 numpy
 arrays, scaled by ``scale_factor``. On a mesh whose data axis has a group,
 each rank encodes its rows of every batch, with the posterior noise of the
 whole batch drawn and sliced (``ops/draws.py``), and the latents are
-all-gathered: every rank returns what one process would.
+all-gathered: every rank returns what one process would. The encode pads
+every batch of frames to ``batch_size`` by repeating its last frame, as
+``svtpu`` pads it, so that a run has one shape. On a card the encode and
+the decode run as CUDA graphs (``models/encode_graph.py``), one at a time,
+and the all-gather runs after the graph, outside it.
 
 ``load_frame_pm1`` decodes an image file as the reference does (PIL,
 imported where it is used), and ``precompute_embeddings`` turns a frame
@@ -25,7 +29,10 @@ import torch
 
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import PerceptualConfig
+from svtpu_torch.evaluation.common import padded_chunks
 from svtpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
+from svtpu_torch.models.encode_graph import GraphedEncodes
+from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.ops.draws import GlobalRows, ShardedGenerator
 from svtpu_torch.parallel import distributed
 from svtpu_torch.parallel.distributed import local_batch_to_global
@@ -52,7 +59,7 @@ def load_frame_pm1(path: str, resize_wh: Tuple[int, int]) -> np.ndarray:
     return np.asarray(img, np.uint8)
 
 
-class PerceptualEncoder:
+class PerceptualEncoder(GraphedEncodes):
     """AutoencoderKL encode and decode in batches of ``batch_size``.
 
     Args:
@@ -67,7 +74,15 @@ class PerceptualEncoder:
       mesh: a ``parallel.mesh.Mesh`` whose "data" axis splits each batch;
         ``make_mesh()`` by default (one rank without a process group). The
         batch size is rounded up to a multiple of the axis.
+
+    On a card without a "model" mesh axis the encode and the decode run as
+    CUDA graphs (``graph_route``), one graph held at a time: at batch 8 and
+    1280x704 the encode's pool holds 17.5 GiB and the decode's 32.9 GiB,
+    so a call of the other kind frees the graph before it. ``drop_graphs()``
+    frees the one held.
     """
+
+    _one_graph = True
 
     def __init__(self, params: Mapping[str, torch.Tensor],
                  cfg: PerceptualConfig = PerceptualConfig(),
@@ -83,64 +98,75 @@ class PerceptualEncoder:
         self.batch_size = -(-batch_size // ndata) * ndata
         self.stochastic = stochastic
         self.seed = seed
+        self._graphed = graph_route(self.device, self.mesh) == "graph"
 
     def _rows(self, n: int):
-        """This rank's rows ``[lo, hi)`` of an ``n``-row batch and the rows
-        each rank encodes (``hi - lo`` padded to it); all of them where the
-        data axis has no group."""
+        """This rank's rows ``[lo, hi)`` of an ``n``-row batch (``n`` a
+        multiple of the data axis); all of them where the axis has no
+        group."""
         if self.mesh.group("data") is None:
-            return 0, n, n
-        per = -(-n // self.mesh.size("data"))
-        lo = min(self.mesh.rank("data") * per, n)
-        return lo, min(lo + per, n), per
+            return 0, n
+        per = n // self.mesh.size("data")
+        lo = self.mesh.rank("data") * per
+        return lo, lo + per
 
-    def _encode(self, frames_u8: torch.Tensor, offset: int) -> torch.Tensor:
-        n = len(frames_u8)
-        lo, hi, per = self._rows(n)
-        part = frames_u8[lo:hi]
-        if len(part) < per:              # equal shapes for the all-gather
-            part = torch.cat([part, frames_u8[-1:].expand(
-                (per - len(part),) + tuple(frames_u8.shape[1:]))])
-        x = part.to(self.device).float() * (2.0 / 255.0) - 1.0
+    def _encode_body(self, inputs, _temperature, _noise_scale, gen):
+        """The device work of one batch of this rank's frames (``svtpu``'s
+        jitted ``encode``): uint8 → [-1, 1] → the posterior → a sample
+        (from ``gen``, at this rank's rows of the batch) or its mode,
+        scaled."""
+        (part,) = inputs
+        x = part.float() * (2.0 / 255.0) - 1.0
         post = DiagonalGaussian.from_moments(self.model.encode(x))
-        if self.stochastic:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(batch_seed(self.seed, offset))
-            if self.mesh.group("data") is not None:
-                rows = torch.arange(lo, lo + per, device=self.device
-                                    ).clamp(max=n - 1)
-                gen = ShardedGenerator(gen, GlobalRows(rows, n))
-            z = post.sample(gen)
-        else:
-            z = post.mode()
-        return local_batch_to_global(self.cfg.scale_factor * z,
-                                     self.mesh)[:n]
+        if gen is None:
+            return self.cfg.scale_factor * post.mode()
+        if self.mesh.group("data") is not None:
+            rows = torch.arange(*self._rows(self.batch_size),
+                                device=self.device)
+            gen = ShardedGenerator(gen, GlobalRows(rows, self.batch_size))
+        return self.cfg.scale_factor * post.sample(gen)
+
+    def _decode_body(self, inputs, _temperature, _noise_scale, _gen):
+        """The device work of one batch of this rank's latents (``svtpu``'s
+        jitted ``decode``): unscale → decode → [0, 1] pixels."""
+        (z,) = inputs
+        x = self.model.decode(z / self.cfg.scale_factor)
+        return torch.clamp((x.float() + 1.0) * 0.5, 0.0, 1.0)
 
     def encode_frames(self, frames_u8: np.ndarray) -> np.ndarray:
-        """``[N, H, W, 3]`` uint8 → ``[N, H/8, W/8, 4]`` float32 latents."""
-        frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
+        """``[N, H, W, 3]`` uint8 → ``[N, H/8, W/8, 4]`` float32 latents,
+        ``batch_size`` frames a batch, the last padded to it
+        (``padded_chunks``)."""
+        lo, hi = self._rows(self.batch_size)
         out = []
         with torch.inference_mode():
-            for i in range(0, len(frames), self.batch_size):
-                out.append(self._encode(frames[i:i + self.batch_size], i)
+            for i, part, n in padded_chunks(frames_u8, self.batch_size):
+                seed = batch_seed(self.seed, i) if self.stochastic else None
+                z = self.run_encode(
+                    "sd encode", self.model, (), self._encode_body,
+                    (torch.from_numpy(np.ascontiguousarray(part[lo:hi])),),
+                    seed=seed)
+                out.append(local_batch_to_global(z, self.mesh)[:n]
                            .cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
 
     def decode_latents(self, z_nhwc: np.ndarray) -> np.ndarray:
-        """Scaled latents → [0, 1] pixels ``[N, H, W, 3]`` float32; on a
-        mesh each batch is padded to a multiple of the data axis
-        (``pad_to_multiple``) and split over it."""
+        """Scaled latents → [0, 1] pixels ``[N, H, W, 3]`` float32,
+        ``batch_size`` latents a batch, split over the data axis on a mesh.
+        The last batch is padded (``pad_to_multiple``) to a multiple of the
+        data axis, and on the graph route to ``batch_size``, so that a run
+        replays one graph."""
         z = np.ascontiguousarray(z_nhwc, np.float32)
-        ndata = self.mesh.size("data")
+        multiple = self.batch_size if self._graphed \
+            else self.mesh.size("data")
         out = []
         with torch.inference_mode():
             for i in range(0, len(z), self.batch_size):
-                zb, n = pad_to_multiple(z[i:i + self.batch_size], ndata)
-                lo, hi, _ = self._rows(len(zb))
-                zb = torch.from_numpy(zb[lo:hi]).to(self.device) \
-                    / self.cfg.scale_factor
-                x = torch.clamp((self.model.decode(zb).float() + 1.0) * 0.5,
-                                0.0, 1.0)
+                zb, n = pad_to_multiple(z[i:i + self.batch_size], multiple)
+                lo, hi = self._rows(len(zb))
+                x = self.run_encode("sd decode", self.model, (),
+                                    self._decode_body,
+                                    (torch.from_numpy(zb[lo:hi]),))
                 out.append(local_batch_to_global(x, self.mesh)[:n]
                            .cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
@@ -188,6 +214,7 @@ def precompute_embeddings(frames_dir: str | Path, out_path: str | Path,
             enc.seed = seed + i   # decorrelate posterior noise across chunks
             latents_parts.append(enc.encode_frames(pending))
             pending = nxt.result() if nxt is not None else None
+    enc.drop_graphs()
     latents = np.concatenate(latents_parts)    # [N, h, w, 4]
     emb = {p.name: np.transpose(z, (2, 0, 1))[None].astype(np.float32)
            for p, z in zip(paths, latents)}    # [1, 4, h, w] like reference

@@ -10,7 +10,10 @@
                attention kernel inside) → percep RBVAE encode → codes
 
 With ``cfg.pallas_trunk`` and ``cfg.pallas_sampler`` set, the RBVAE encode
-runs through the hand-written CUDA kernels.
+runs through the hand-written CUDA kernels. On a card the device work of
+each path's encode (pixel: from the uint8 batch to the codes; percep: the
+RBVAE encode of the latents) is one CUDA graph a batch shape, as
+``svtpu`` jits it (``models/encode_graph.py``); on the CPU it runs eagerly.
 """
 from __future__ import annotations
 
@@ -24,12 +27,14 @@ import torch
 
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig
+from svtpu_torch.models.encode_graph import GraphedEncodes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.ops.image import resize_bilinear, resize_u8, to_float01
 from svtpu_torch.perceptual.embed import preprocess_size
 
 
-class VideoSymbolPipeline:
+class VideoSymbolPipeline(GraphedEncodes):
     """Frame batches → ``[N, latent]`` binary codes.
 
     Args:
@@ -49,7 +54,9 @@ class VideoSymbolPipeline:
         ``jax.image.resize`` does (antialiased); "host" resizes the uint8
         frames on the CPU first, as the reference's ``cv2.resize(...,
         INTER_LINEAR)`` does (fewer bytes to move).
-      device: CUDA unless ``"cpu"`` is asked for.
+      device: CUDA unless ``"cpu"`` is asked for. On a card the encode
+        runs as a CUDA graph a batch shape (``graph_route``);
+        ``drop_graphs()`` frees them.
     """
 
     def __init__(self, cfg: RBVAEConfig, params: Mapping[str, torch.Tensor],
@@ -77,6 +84,7 @@ class VideoSymbolPipeline:
         if percep is not None:
             w, h = preprocess_size(percep.cfg.resize_wh)
             self._sd_hw = (h, w)
+        self._graphed = graph_route(self.device) == "graph"
 
     def _frame_batches(self, video_path: str
                        ) -> Iterator[tuple[np.ndarray, int]]:
@@ -169,6 +177,18 @@ class VideoSymbolPipeline:
         return np.concatenate(out) if out else np.zeros(
             (0, self.cfg.latent_dim))
 
+    def _codes(self, inputs, temperature, noise_ratio, generator):
+        """The device work of one batch (``svtpu``'s jitted ``encode`` /
+        ``encode_emb``): pixel path, uint8 frames → [0, 1] → resize →
+        codes; percep path, SD latents → codes."""
+        (x,) = inputs
+        if self.percep is None:
+            x = resize_bilinear(to_float01(x), tuple(self.cfg.input_hw))
+        z = self.model.encode(x[:, None], temperature, self.hard,
+                              noise_ratio, deterministic=not self.noise,
+                              generator=generator)
+        return z[:, 0].to(torch.uint8 if self.hard else torch.float32)
+
     def run_frames(self, frames_u8: np.ndarray,
                    batch_index: int = 0) -> np.ndarray:
         """Encode one uint8 ``[N, H, W, C]`` frame batch (any resolution)."""
@@ -178,21 +198,12 @@ class VideoSymbolPipeline:
         if (self.percep is not None or self.resize_on == "host") \
                 and tuple(frames.shape[1:3]) != target:
             frames = resize_u8(frames, target)
-        generator = None
-        if self.noise:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(batch_seed(self.seed, batch_index))
+        seed = batch_seed(self.seed, batch_index) if self.noise else None
+        x = frames if self.percep is None else torch.from_numpy(
+            self.percep.encode_frames(frames.numpy()))
         with torch.inference_mode():
-            if self.percep is not None:
-                x = torch.from_numpy(self.percep.encode_frames(
-                    frames.numpy())).to(self.device)
-            else:
-                x = resize_bilinear(to_float01(frames.to(self.device)),
-                                    target)
-            z = self.model.encode(x[:, None], self.temperature, self.hard,
-                                  self.noise_ratio,
-                                  deterministic=not self.noise,
-                                  generator=generator)
-            z = z[:, 0].to(torch.uint8 if self.hard else torch.float32)
+            z = self.run_encode("run_frames", self.model,
+                                (self.hard, self.noise), self._codes, (x,),
+                                self.temperature, self.noise_ratio, seed)
         return z.cpu().numpy()
 

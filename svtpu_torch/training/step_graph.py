@@ -29,15 +29,20 @@ share a pool, where a replay of one could overwrite the other's tensors.
 
 Which route a trainer takes follows from its device and mesh
 (``step_route``). A capture that fails raises ``StepCaptureError``: the
-trainer does not train eagerly in its place.
+trainer does not train eagerly in its place. The warm-up, the capture and
+the launch counts are ``ops/cuda_graph.py``'s, which the serving encodes'
+graphs share.
 """
 from __future__ import annotations
 
 import time
-import traceback
 from typing import Callable
 
 import torch
+
+from svtpu_torch.ops import cuda_graph
+# How a ``Trainer`` runs its train step: the rule of every graph's route.
+from svtpu_torch.ops.cuda_graph import graph_route as step_route  # noqa: F401
 
 # Eager steps of a state before its capture.
 WARMUP_STEPS = 2
@@ -45,16 +50,6 @@ WARMUP_STEPS = 2
 
 class StepCaptureError(RuntimeError):
     """The train step could not be captured as a CUDA graph."""
-
-
-def step_route(device, mesh) -> str:
-    """How a ``Trainer`` runs its train step: ``"graph"`` (one CUDA graph a
-    step) on a CUDA device whose mesh has no "model" axis; ``"eager"`` on
-    the CPU, where CUDA graphs do not exist, and under a "model" axis, whose
-    tensor-parallel fc layers are ``DTensor``s."""
-    if torch.device(device).type != "cuda" or "model" in mesh.axis_names:
-        return "eager"
-    return "graph"
 
 
 class StepGraph:
@@ -86,6 +81,8 @@ class StepGraph:
         self.batch = None       # the static input
         self.out = None         # the static output
         self.capture_s = None   # host seconds of the capture
+        self.launches = cuda_graph.Launches()
+        self.delta = None       # the kernel launches of one replay
 
     def __call__(self, batch: torch.Tensor) -> torch.Tensor:
         if self.graph is None and self.eager_steps < WARMUP_STEPS:
@@ -100,43 +97,21 @@ class StepGraph:
                     f"{tuple(batch.shape)}")
             self.batch.copy_(batch)
         self.graph.replay()
+        self.launches.add(self.delta)
         StepGraph.replays += 1
         return self.out
 
     def _warm_up(self, batch: torch.Tensor) -> torch.Tensor:
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self.body(batch)
-        main.wait_stream(side)
-        out.record_stream(main)
+        out = cuda_graph.on_side_stream(lambda: self.body(batch), self.device)
         self.eager_steps += 1
         return out
 
     def _capture(self, batch: torch.Tensor) -> None:
         t0 = time.perf_counter()
         self.batch = batch.clone()
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators():
-            graph.register_generator_state(gen)
-        try:
-            # "thread_local": a prefetch thread may copy the next batch up
-            # meanwhile.
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.out = self.body(self.batch)
-        except Exception as e:  # noqa: BLE001 — named and re-raised
-            # The first error of the chain is the step's own; the capture's
-            # end fails after it.
-            cause = e
-            while cause.__context__ is not None:
-                cause = cause.__context__
-            where = traceback.extract_tb(cause.__traceback__)[-1]
-            raise StepCaptureError(
-                f"capturing the train step as a CUDA graph failed at "
-                f"{where.filename}:{where.lineno} ({where.line}): "
-                f"{type(cause).__name__}: {str(cause).splitlines()[0]}; "
-                f"the step does not run eagerly in its place") from e
-        self.graph = graph
+        self.graph, self.out, self.delta = cuda_graph.capture(
+            lambda: self.body(self.batch), self.generators(), self.device,
+            StepCaptureError, "the train step",
+            "the step does not run eagerly in its place", self.launches)
         self.capture_s = time.perf_counter() - t0
         StepGraph.captures += 1

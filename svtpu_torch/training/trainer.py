@@ -47,6 +47,10 @@ The kernels are inference-only in both packages: the train step takes the
 plain trunk and sampler, and the probes (``encode_frames``) route through
 the hand-written kernels when the model config sets ``pallas_trunk`` /
 ``pallas_sampler``, as ``svtpu``'s probes route through its Pallas kernels.
+On the step's graph route the probes run as CUDA graphs too, one a train
+state and key (``models/encode_graph.py``, ``svtpu``'s jitted ``enc`` and
+``enc_rows``): the temperature reaches them through a device tensor, so one
+graph serves every epoch; ``train`` frees them when it returns.
 """
 from __future__ import annotations
 
@@ -68,6 +72,7 @@ from svtpu_torch.data.prefetch import prefetch_to_device
 from svtpu_torch.data.segments import SplitIndices, assign_label
 from svtpu_torch.evaluation.common import encode_chunks
 from svtpu_torch.evaluation.hamming import adjacent_hamming, modal_codes
+from svtpu_torch.models.encode_graph import GraphedEncodes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops import losses
 from svtpu_torch.ops.draws import GlobalRows, Replicas
@@ -386,7 +391,7 @@ def simple_objective(model: Seq2SeqBinaryVAE, cfg: TrainConfig, batch,
     return total, {"total_loss": total, "recon_loss": recon, "kl_loss": kl}
 
 
-class Trainer:
+class Trainer(GraphedEncodes):
     """RBVAE trainer, on one device or over a mesh of ranks.
 
     Args:
@@ -402,7 +407,9 @@ class Trainer:
         flags' labels.
       device: CUDA unless ``"cpu"`` is asked for (raises without a card);
         under NCCL, this rank's card. On a CUDA device with no "model" mesh
-        axis every train step is a replay of a CUDA graph (``step_route``).
+        axis every train step is a replay of a CUDA graph (``step_route``),
+        and so is every probe encode after its key's first
+        (``encode_frames``).
     """
 
     def __init__(self, model_cfg: RBVAEConfig, train_cfg: TrainConfig,
@@ -701,18 +708,25 @@ class Trainer:
                       chunk: int = 128, from_bank: bool = False) -> np.ndarray:
         """Batched single-frame encode → codes ``[N, latent]``
         (``encode_chunks``) at the eval noise ratio. ``from_bank=True``:
-        ``frames`` are row indices into the device bank."""
+        ``frames`` are row indices into the device bank, gathered on the
+        device. On the graph route (``_graphed``) each (model, key) is a
+        CUDA graph whose temperature is written at every call."""
         cfg = self.cfg
         enc_noise = (cfg.eval_noise_ratio if cfg.eval_noise_ratio is not None
                      else cfg.noise_ratio)
         use_bank = from_bank and self._bank is not None
+        return encode_chunks(model, frames, self._chunk_prep(use_bank),
+                             temperature, hard, noise, enc_noise, seed,
+                             chunk, self.encode_graphs())
 
-        def load(part):
-            x = torch.from_numpy(part).to(self.device)
+    def _chunk_prep(self, use_bank: bool):
+        """A probe chunk on the card → the model's input: row indices
+        gathered from the bank (``svtpu``'s ``enc_rows``), or frames."""
+
+        def prep(x):
             return _prep(self._bank[x.long()] if use_bank else x)
 
-        return encode_chunks(model, frames, load, temperature, hard, noise,
-                             enc_noise, seed, chunk)
+        return prep
 
     def _val_codes(self, model, val_idx, temperature, noise: bool,
                    seed: int) -> np.ndarray:
@@ -1045,6 +1059,7 @@ class Trainer:
         # step's activations); a caller that steps the final state on
         # captures anew.
         state.graph = None
+        self.drop_graphs()
         history["final_state"] = state
         self.writer.close()
         return history

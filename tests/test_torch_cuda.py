@@ -167,3 +167,65 @@ def test_step_graph_replays_the_eager_step_bit_for_bit(remat):
     assert all(torch.equal(a, b) for a, b in zip(gv, ev))
     assert all(torch.equal(gp[k], ep[k]) for k in ep)
     assert all(torch.equal(go[i][k], eo[i][k]) for i in eo for k in eo[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["contrastive", "simple"])
+def test_run_frames_graph_equals_eager_bit_for_bit(case):
+    """``run_frames`` of a tiny model with both kernels, noise on, four
+    batches of one shape on the graph route (the first eager, the second
+    captured, then replays) and on the eager route: equal codes batch for
+    batch, one capture, and the kernels' launches counted alike."""
+    from svtpu_torch.models.encode_graph import EncodeGraph
+    from svtpu_torch.ops.cuda_graph import Launches
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    _require_card()
+    geom = {"contrastive": dict(input_hw=(256, 256)),
+            "simple": dict(input_hw=(32, 32), conv_features=(8, 8, 8))}[case]
+    cfg = rbvae_variant(case, 25, pallas_trunk=case == "contrastive",
+                        pallas_sampler=True, **geom)
+    sd = Seq2SeqBinaryVAE(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(3)
+                          ).state_dict()
+    frames = np.random.default_rng(5).integers(
+        0, 256, (4, 16) + cfg.input_hw + (3,), np.uint8)
+    launches = Launches()
+    runs = []
+    for graphed in (True, False):
+        pipe = VideoSymbolPipeline(cfg, sd, temperature=0.3)
+        pipe._graphed = graphed
+        before, captures = launches.read(), EncodeGraph.captures
+        codes = [pipe.run_frames(f, i) for i, f in enumerate(frames)]
+        runs.append((codes, launches.since(before),
+                     EncodeGraph.captures - captures))
+    (gc, gl, g_captures), (ec, el, e_captures) = runs
+    assert (g_captures, e_captures) == (1, 0) and gl == el
+    assert all(np.array_equal(a, b) for a, b in zip(gc, ec))
+
+
+@pytest.mark.cuda
+def test_encode_chunks_graph_equals_eager_bit_for_bit():
+    """``RBVAEBundle.encode`` of 300 uint8 frames (chunks of 128, the last
+    padded), noise on, at two temperatures, soft and hard: the graph route
+    equals the eager route, and a new temperature captures nothing."""
+    from svtpu_torch.evaluation.common import RBVAEBundle
+    from svtpu_torch.models.encode_graph import EncodeGraph
+
+    _require_card()
+    cfg = rbvae_variant("contrastive", 25, pallas_trunk=True,
+                        pallas_sampler=True)
+    sd = Seq2SeqBinaryVAE(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(4)
+                          ).state_dict()
+    frames = np.random.default_rng(6).integers(0, 256, (300, 256, 256, 3),
+                                               np.uint8)
+    graphed, eager = RBVAEBundle(cfg, sd), RBVAEBundle(cfg, sd)
+    eager._graphed = False
+    for hard in (False, True):
+        captures = EncodeGraph.captures
+        for temp in (0.2, 0.7):
+            kw = dict(temperature=temp, hard=hard, noise=True, seed=2)
+            assert np.array_equal(graphed.encode(frames, **kw),
+                                  eager.encode(frames, **kw))
+        assert EncodeGraph.captures - captures == 1
