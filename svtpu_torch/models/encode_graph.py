@@ -47,6 +47,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from svtpu_torch.ops import cuda_graph
+from svtpu_torch.utils.profiling import span
 
 # body(inputs, temperature, noise_scale, generator) -> the encode's tensor
 Body = Callable[..., torch.Tensor]
@@ -79,7 +80,12 @@ class _Key:
 
     def load(self, inputs, temperature, noise_scale, seed) -> None:
         for buf, t in zip(self.inputs, inputs):
-            buf.copy_(t, non_blocking=t.device.type == "cuda")
+            if t.device.type == "cuda":
+                buf.copy_(t, non_blocking=True)
+            else:
+                # From the host the copy is synchronous: the host waits.
+                with span("svtpu.graph.copy_in.wait"):
+                    buf.copy_(t)
         if self.temperature is not None:
             self.temperature.fill_(float(temperature))
             self.noise_scale.fill_(float(noise_scale))

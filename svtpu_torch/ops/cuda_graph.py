@@ -21,6 +21,8 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from svtpu_torch.utils.profiling import span
+
 
 def graph_route(device, mesh=None) -> str:
     """``"graph"`` on a CUDA device whose mesh (if any) has no "model" axis;
@@ -114,7 +116,7 @@ def capture(body: Callable[[], torch.Tensor], generators: Iterable,
         graph.register_generator_state(gen)
     before = launches.read()
     try:
-        with torch.cuda.device(device), \
+        with span("svtpu.graph.capture"), torch.cuda.device(device), \
                 torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = body()
     except Exception as e:  # noqa: BLE001 — named and re-raised

@@ -37,6 +37,7 @@ from svtpu_torch.ops.draws import GlobalRows, ShardedGenerator
 from svtpu_torch.parallel import distributed
 from svtpu_torch.parallel.distributed import local_batch_to_global
 from svtpu_torch.parallel.mesh import make_mesh, pad_to_multiple
+from svtpu_torch.utils.profiling import span
 
 
 def preprocess_size(resize_wh: Tuple[int, int]) -> Tuple[int, int]:
@@ -139,15 +140,16 @@ class PerceptualEncoder(GraphedEncodes):
         (``padded_chunks``)."""
         lo, hi = self._rows(self.batch_size)
         out = []
-        with torch.inference_mode():
+        with span("svtpu.percep.encode_frames"), torch.inference_mode():
             for i, part, n in padded_chunks(frames_u8, self.batch_size):
                 seed = batch_seed(self.seed, i) if self.stochastic else None
                 z = self.run_encode(
                     "sd encode", self.model, (), self._encode_body,
                     (torch.from_numpy(np.ascontiguousarray(part[lo:hi])),),
                     seed=seed)
-                out.append(local_batch_to_global(z, self.mesh)[:n]
-                           .cpu().numpy())
+                z = local_batch_to_global(z, self.mesh)[:n]
+                with span("svtpu.percep.readback.wait"):
+                    out.append(z.cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
 
     def decode_latents(self, z_nhwc: np.ndarray) -> np.ndarray:

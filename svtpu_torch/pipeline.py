@@ -32,6 +32,7 @@ from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.ops.image import resize_bilinear, resize_u8, to_float01
 from svtpu_torch.perceptual.embed import preprocess_size
+from svtpu_torch.utils.profiling import span
 
 
 class VideoSymbolPipeline(GraphedEncodes):
@@ -192,18 +193,22 @@ class VideoSymbolPipeline(GraphedEncodes):
     def run_frames(self, frames_u8: np.ndarray,
                    batch_index: int = 0) -> np.ndarray:
         """Encode one uint8 ``[N, H, W, C]`` frame batch (any resolution)."""
-        frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        target = self._sd_hw if self.percep is not None \
-            else tuple(self.cfg.input_hw)
-        if (self.percep is not None or self.resize_on == "host") \
-                and tuple(frames.shape[1:3]) != target:
-            frames = resize_u8(frames, target)
-        seed = batch_seed(self.seed, batch_index) if self.noise else None
-        x = frames if self.percep is None else torch.from_numpy(
-            self.percep.encode_frames(frames.numpy()))
-        with torch.inference_mode():
-            z = self.run_encode("run_frames", self.model,
-                                (self.hard, self.noise), self._codes, (x,),
-                                self.temperature, self.noise_ratio, seed)
-        return z.cpu().numpy()
+        with span("svtpu.pipeline.run_frames"):
+            frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
+            target = self._sd_hw if self.percep is not None \
+                else tuple(self.cfg.input_hw)
+            if (self.percep is not None or self.resize_on == "host") \
+                    and tuple(frames.shape[1:3]) != target:
+                with span("svtpu.pipeline.resize_host"):
+                    frames = resize_u8(frames, target)
+            seed = batch_seed(self.seed, batch_index) if self.noise else None
+            x = frames if self.percep is None else torch.from_numpy(
+                self.percep.encode_frames(frames.numpy()))
+            with span("svtpu.pipeline.encode"), torch.inference_mode():
+                z = self.run_encode("run_frames", self.model,
+                                    (self.hard, self.noise), self._codes,
+                                    (x,), self.temperature, self.noise_ratio,
+                                    seed)
+            with span("svtpu.pipeline.readback.wait"):
+                return z.cpu().numpy()
 

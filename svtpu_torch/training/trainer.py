@@ -54,6 +54,7 @@ graph serves every epoch; ``train`` frees them when it returns.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -86,6 +87,7 @@ from svtpu_torch.training.checkpoints import BestCheckpointer
 from svtpu_torch.training.metrics import MetricsWriter
 from svtpu_torch.training.schedules import temperature_schedule
 from svtpu_torch.training.step_graph import StepGraph, step_route
+from svtpu_torch.utils.profiling import span
 
 _M32 = 0xFFFFFFFF
 
@@ -601,21 +603,23 @@ class Trainer(GraphedEncodes):
     def _upload_epoch(self, epoch: int) -> Optional[torch.Tensor]:
         """This rank's rows of the epoch's stacked ``[steps, B, 2, S]`` row
         indices, on the device (one copy); ``None`` for an empty epoch."""
-        batches = list(self.train_batcher.epoch_indices(epoch))
-        if not batches:
-            return None
-        idx = np.stack(batches)[:, self._lo:self._hi]
-        return torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        with span("svtpu.train.data"):
+            batches = list(self.train_batcher.epoch_indices(epoch))
+            if not batches:
+                return None
+            idx = np.stack(batches)[:, self._lo:self._hi]
+            return torch.from_numpy(idx.astype(np.int64)).to(self.device)
 
     def _fused_steps(self, state: TrainState, idx: torch.Tensor):
         """Every step of a staged epoch, with no wait for the device: the
         per-metric sums stay on it (a vector in ``_epoch_metric_names``
         order). Returns the sums and the sum of the steps' temperatures."""
         sums, temps = None, 0.0
-        for i in range(len(idx)):
-            vec, temp = self._step(state, idx[i])
-            sums = vec.clone() if sums is None else sums + vec
-            temps += temp
+        with span("svtpu.train.steps"):
+            for i in range(len(idx)):
+                vec, temp = self._step(state, idx[i])
+                sums = vec.clone() if sums is None else sums + vec
+                temps += temp
         return sums, temps
 
     def _fused_epoch(self, state: TrainState, epoch: int):
@@ -625,8 +629,10 @@ class Trainer(GraphedEncodes):
         if idx is None:
             return {}, 0
         vec, temps = self._fused_steps(state, idx)
-        sums = dict(zip(self._epoch_metric_names,
-                        self._data_mean(vec).cpu().double().tolist()))
+        vec = self._data_mean(vec)
+        with span("svtpu.train.readback.wait"):
+            vec = vec.cpu()
+        sums = dict(zip(self._epoch_metric_names, vec.double().tolist()))
         sums["temperature"] = temps
         return ({k: v / len(idx) for k, v in sums.items()},
                 len(idx) * self.cfg.batch_size * int(np.prod(idx.shape[2:])))
@@ -673,6 +679,33 @@ class Trainer(GraphedEncodes):
             m["total_loss"] = (m["recon_loss"] + cfg.beta_kl * m["kl_loss"]
                                + cfg.alpha * m["contrast_loss"]) / coeff
         return m
+
+    def _val_epoch(self, model, vib: Optional[torch.Tensor],
+                   epoch: int) -> dict:
+        """The val set's mean metrics under ``epoch``'s key: from ``vib``,
+        its stacked row indices on the device (a fused run: one readback),
+        else from batches copied up and read back one at a time."""
+        with span("svtpu.train.val"):
+            vkey = batch_seed(self._base_seed, 10_000_000 + epoch)
+            if vib is not None:
+                vbatches = iter(vib)
+            else:
+                vbatches = (torch.from_numpy(b).to(self.device) for b in (
+                    self.val_batcher.epoch_indices(0)
+                    if self._bank is not None else self.val_batcher.epoch(0)))
+            vsums, vn, names = None, 0, []
+            for b in vbatches:
+                m = self._val_step(model, b, vkey)
+                names = sorted(m)
+                vec = torch.stack([m[k].float() for k in names])
+                vn += 1
+                if vib is None:
+                    vec = vec.cpu().double()   # one readback a batch
+                vsums = vec if vsums is None else vsums + vec
+            if vsums is None:
+                return {}
+            return {k: v / max(vn, 1) for k, v in
+                    zip(names, vsums.cpu().double().tolist())}
 
     def _full_tree(self, state: TrainState) -> dict:
         """The checkpoint tree, sharded tensors whole (every rank calls
@@ -864,7 +897,6 @@ class Trainer(GraphedEncodes):
 
         t0 = time.time()
         frames_seen = 0
-        staged = self._bank is not None
         vib = None
         if fused:
             # The val set is fixed across epochs and restarts: its stacked
@@ -887,169 +919,159 @@ class Trainer(GraphedEncodes):
         det_w, sep_mean = 0.0, 0.0
 
         for epoch in range(start_epoch, num_epochs):
-            # ---- train
-            if fused:
-                train_losses, frames = self._fused_epoch(state, epoch)
-            else:
-                train_losses, frames = self._per_step_epoch(state, epoch,
-                                                            log_every)
-            frames_seen += frames
-
-            # ---- validate every cfg.val_every epochs, and always on the
-            # final epoch and the restart-check epoch.
-            probe = (cfg.val_every <= 1
-                     or (epoch - start_epoch) % cfg.val_every == 0
-                     or epoch == num_epochs - 1
-                     or (next_check is not None
-                         and restarts < cfg.max_restarts
-                         and epoch + 1 == next_check))
-            val_losses = {}
-            better = False
-            if probe:
-                vkey = batch_seed(self._base_seed, 10_000_000 + epoch)
-                if vib is not None:
-                    vbatches = iter(vib)
+            with span("svtpu.train.epoch"), \
+                    contextlib.ExitStack() as epoch_end:
+                # ---- train
+                if fused:
+                    train_losses, frames = self._fused_epoch(state, epoch)
                 else:
-                    vbatches = (torch.from_numpy(b).to(self.device) for b in (
-                        self.val_batcher.epoch_indices(0) if staged
-                        else self.val_batcher.epoch(0)))
-                vsums, vn, names = None, 0, []
-                for b in vbatches:
-                    m = self._val_step(state.model, b, vkey)
-                    names = sorted(m)
-                    vec = torch.stack([m[k].float() for k in names])
-                    vn += 1
-                    if not fused:
-                        vec = vec.cpu().double()   # one readback a batch
-                    vsums = vec if vsums is None else vsums + vec
-                if vsums is not None:
-                    val_losses = {k: v / max(vn, 1) for k, v in
-                                  zip(names, vsums.cpu().double().tolist())}
+                    train_losses, frames = self._per_step_epoch(state, epoch,
+                                                                log_every)
+                frames_seen += frames
+                # Val, probes, the metrics writer, selection, checkpoint
+                # and restart: what runs between two epochs' steps.
+                epoch_end.enter_context(span("svtpu.train.epoch_end"))
 
-                score, per_state = self.state_consistency(
-                    state.model, cfg.final_temperature, seed=epoch)
-                val_losses["consistency_score"] = float(score)
-                sep, det_w, ham = self.state_separation(
-                    state.model, cfg.final_temperature)
-                sep_mean = float(ham.mean()) if len(ham) else 0.0
-                val_losses["state_separation"] = sep
-                val_losses["sep_mean"] = sep_mean
-                val_losses["sep_min"] = float(ham.min()) if len(ham) else 0.0
-                for i, h in enumerate(ham):
-                    val_losses[f"sep_pair_{i}"] = float(h)
-                val_losses["det_consistency_score"] = det_w
-                val_losses["combined_score"] = float(score) * min(
-                    sep / cfg.sep_target, 1.0)
-                for i, p in enumerate(per_state):
-                    val_losses[f"state_{i}_consistency"] = float(p)
+                # ---- validate every cfg.val_every epochs, and always on the
+                # final epoch and the restart-check epoch.
+                probe = (cfg.val_every <= 1
+                         or (epoch - start_epoch) % cfg.val_every == 0
+                         or epoch == num_epochs - 1
+                         or (next_check is not None
+                             and restarts < cfg.max_restarts
+                             and epoch + 1 == next_check))
+                val_losses = {}
+                better = False
+                if probe:
+                    val_losses = self._val_epoch(state.model, vib, epoch)
+                    with span("svtpu.train.probe"):
+                        score, per_state = self.state_consistency(
+                            state.model, cfg.final_temperature, seed=epoch)
+                    val_losses["consistency_score"] = float(score)
+                    with span("svtpu.train.probe"):
+                        sep, det_w, ham = self.state_separation(
+                            state.model, cfg.final_temperature)
+                    sep_mean = float(ham.mean()) if len(ham) else 0.0
+                    val_losses["state_separation"] = sep
+                    val_losses["sep_mean"] = sep_mean
+                    val_losses["sep_min"] = \
+                        float(ham.min()) if len(ham) else 0.0
+                    for i, h in enumerate(ham):
+                        val_losses[f"sep_pair_{i}"] = float(h)
+                    val_losses["det_consistency_score"] = det_w
+                    val_losses["combined_score"] = float(score) * min(
+                        sep / cfg.sep_target, 1.0)
+                    for i, p in enumerate(per_state):
+                        val_losses[f"state_{i}_consistency"] = float(p)
 
-                # Trap guard: keep the measured |h|/T at or below the band
-                # by raising the temperature floor as |h| grows.
-                if cfg.trap_guard_ratio > 0:
-                    abs_h = self._ctxfree_h_scale(state.model)
-                    val_losses["ctxfree_abs_h"] = abs_h
-                    needed = abs_h / cfg.trap_guard_ratio
-                    if needed > self._temp_floor:
-                        self._temp_floor = needed
-                        ev = history.setdefault(
-                            "trap_guard", {"first_raise_epoch": epoch,
-                                           "raises": 0})
-                        ev["raises"] += 1
-                        ev["floor"] = float(needed)
-                        ev["abs_h"] = abs_h
-                        ev["epoch"] = epoch
+                    # Trap guard: keep the measured |h|/T at or below the band
+                    # by raising the temperature floor as |h| grows.
+                    if cfg.trap_guard_ratio > 0:
+                        abs_h = self._ctxfree_h_scale(state.model)
+                        val_losses["ctxfree_abs_h"] = abs_h
+                        needed = abs_h / cfg.trap_guard_ratio
+                        if needed > self._temp_floor:
+                            self._temp_floor = needed
+                            ev = history.setdefault(
+                                "trap_guard", {"first_raise_epoch": epoch,
+                                               "raises": 0})
+                            ev["raises"] += 1
+                            ev["floor"] = float(needed)
+                            ev["abs_h"] = abs_h
+                            ev["epoch"] = epoch
 
-            self.writer.scalars("Epoch/Train", train_losses, epoch)
-            if probe:
-                self.writer.scalars("Epoch/Val", val_losses, epoch)
-                metric = val_losses[{
-                    "consistency": "consistency_score",
-                    "separation": "state_separation",
-                    "combined": "combined_score",
-                    "val_loss": "total_loss"}[cfg.select_by]]
-                # Lexicographic selection: the metric, then det
-                # consistency, mean separation and the epoch break ties.
-                sign = 1.0 if maximize else -1.0
-                sel_key = (sign * metric, det_w, sep_mean, epoch)
-                better = sel_key > tuple(history["best_key"])
-            if better:
-                history["best_metric"] = metric
-                history["best_key"] = list(sel_key)
-                history["best_epoch"] = epoch
-                history["best_ham_vector"] = [int(h) for h in ham]
-            periodic = (cfg.latest_every > 0
-                        and (epoch - start_epoch) % cfg.latest_every == 0)
-            if ckpt and (better or melk_requested[0] or periodic
-                         or epoch == num_epochs - 1):
-                tree = self._full_tree(state)      # a collective under TP
-                if distributed.is_main():
-                    ckpt.save(
-                        tree,
-                        epoch=epoch, metric=metric, sel_key=sel_key,
-                        extra={"select_by": cfg.select_by,
-                               "best_metric": history["best_metric"],
-                               "best_key": list(history["best_key"]),
-                               "ham_vector": [int(h) for h in ham],
-                               "global_step": state.step})
-                melk_requested[0] = False
-            history["train_losses"].append(train_losses)
-            history["val_losses"].append(val_losses)
-            # SVTPU_EPOCH_LOG=N prints a heartbeat every N epochs.
-            hb = int(os.environ.get("SVTPU_EPOCH_LOG", "0") or 0)
-            if hb and distributed.is_main() and (
-                    epoch % hb == 0 or epoch == num_epochs - 1):
-                vals = (f"cons {val_losses['consistency_score']:.3f} "
-                        f"det {val_losses['det_consistency_score']:.3f} "
-                        f"sep {val_losses['state_separation']:.2f} "
-                        if probe else "(no probe) ")
-                print(f"[epoch {epoch}] "
-                      f"train {train_losses.get('total_loss', 0):.4f} "
-                      f"{vals}"
-                      f"best {history['best_metric']:.4f}"
-                      f"@{history['best_epoch']}", flush=True)
+                self.writer.scalars("Epoch/Train", train_losses, epoch)
+                if probe:
+                    self.writer.scalars("Epoch/Val", val_losses, epoch)
+                    metric = val_losses[{
+                        "consistency": "consistency_score",
+                        "separation": "state_separation",
+                        "combined": "combined_score",
+                        "val_loss": "total_loss"}[cfg.select_by]]
+                    # Lexicographic selection: the metric, then det
+                    # consistency, mean separation and the epoch break ties.
+                    sign = 1.0 if maximize else -1.0
+                    sel_key = (sign * metric, det_w, sep_mean, epoch)
+                    better = sel_key > tuple(history["best_key"])
+                if better:
+                    history["best_metric"] = metric
+                    history["best_key"] = list(sel_key)
+                    history["best_epoch"] = epoch
+                    history["best_ham_vector"] = [int(h) for h in ham]
+                periodic = (cfg.latest_every > 0
+                            and (epoch - start_epoch) % cfg.latest_every == 0)
+                if ckpt and (better or melk_requested[0] or periodic
+                             or epoch == num_epochs - 1):
+                    tree = self._full_tree(state)      # a collective under TP
+                    if distributed.is_main():
+                        ckpt.save(
+                            tree,
+                            epoch=epoch, metric=metric, sel_key=sel_key,
+                            extra={"select_by": cfg.select_by,
+                                   "best_metric": history["best_metric"],
+                                   "best_key": list(history["best_key"]),
+                                   "ham_vector": [int(h) for h in ham],
+                                   "global_step": state.step})
+                    melk_requested[0] = False
+                history["train_losses"].append(train_losses)
+                history["val_losses"].append(val_losses)
+                # SVTPU_EPOCH_LOG=N prints a heartbeat every N epochs.
+                hb = int(os.environ.get("SVTPU_EPOCH_LOG", "0") or 0)
+                if hb and distributed.is_main() and (
+                        epoch % hb == 0 or epoch == num_epochs - 1):
+                    vals = (f"cons {val_losses['consistency_score']:.3f} "
+                            f"det {val_losses['det_consistency_score']:.3f} "
+                            f"sep {val_losses['state_separation']:.2f} "
+                            if probe else "(no probe) ")
+                    print(f"[epoch {epoch}] "
+                          f"train {train_losses.get('total_loss', 0):.4f} "
+                          f"{vals}"
+                          f"best {history['best_metric']:.4f}"
+                          f"@{history['best_epoch']}", flush=True)
 
-            # ---- auto-restart: a run that has not left the collapsed basin
-            # by the check epoch re-rolls its init within the same budget.
-            sep_check = (float(ham.min()) if len(ham) else 0.0) \
-                if cfg.restart_on == "min" else sep_mean
-            if probe:
-                run_max_sep = max(run_max_sep, sep_check)
-            if (next_check is not None and restarts < cfg.max_restarts
-                    and epoch + 1 >= next_check
-                    and run_max_sep < cfg.restart_min_sep):
-                restarts += 1
-                state = self.init_state(seed_offset=1000 * restarts)
-                if cfg.restart_reroll == "stream":
-                    # Re-roll the train pairs and the noise stream too; val
-                    # stays fixed so the probes stay comparable.
-                    self.train_batcher = PairBatcher(
-                        self.store, self.splits.train, cfg.batch_size,
-                        seed=self.seed + 1000 * restarts)
-                    self._base_seed = self.seed + 1 + 1000 * restarts
-                run_max_sep = 0.0
-                self._temp_floor = float(cfg.final_temperature)
-                history.pop("trap_guard", None)
-                next_check = epoch + 1 + cfg.restart_check_epoch
-                # The re-rolled run replaces the failed one and its best.
-                history["best_metric"] = -np.inf if maximize else np.inf
-                history["best_key"] = list(worst_key)
-                history["best_epoch"] = epoch + 1
-                metric = history["best_metric"]
-                sel_key = tuple(worst_key)
-                ham = np.zeros(0, dtype=np.int64)
-                det_w, sep_mean = 0.0, 0.0
-                if ckpt:
-                    ckpt.best_metric = None
-                    ckpt.best_key = None
-                history["restarts"].append(
-                    {"epoch": epoch, "restart": restarts,
-                     "seed_offset": 1000 * restarts})
-                print(f"[epoch {epoch}] {cfg.restart_on} separation "
-                      f"{sep_check:.2f} < "
-                      f"{cfg.restart_min_sep} after "
-                      f"{cfg.restart_check_epoch} epochs — restart "
-                      f"{restarts}/{cfg.max_restarts} with seed offset "
-                      f"{1000 * restarts}", flush=True)
+                # ---- auto-restart: a run that has not left the collapsed
+                # basin by the check epoch re-rolls its init within the same
+                # budget.
+                sep_check = (float(ham.min()) if len(ham) else 0.0) \
+                    if cfg.restart_on == "min" else sep_mean
+                if probe:
+                    run_max_sep = max(run_max_sep, sep_check)
+                if (next_check is not None and restarts < cfg.max_restarts
+                        and epoch + 1 >= next_check
+                        and run_max_sep < cfg.restart_min_sep):
+                    restarts += 1
+                    state = self.init_state(seed_offset=1000 * restarts)
+                    if cfg.restart_reroll == "stream":
+                        # Re-roll the train pairs and the noise stream too; val
+                        # stays fixed so the probes stay comparable.
+                        self.train_batcher = PairBatcher(
+                            self.store, self.splits.train, cfg.batch_size,
+                            seed=self.seed + 1000 * restarts)
+                        self._base_seed = self.seed + 1 + 1000 * restarts
+                    run_max_sep = 0.0
+                    self._temp_floor = float(cfg.final_temperature)
+                    history.pop("trap_guard", None)
+                    next_check = epoch + 1 + cfg.restart_check_epoch
+                    # The re-rolled run replaces the failed one and its best.
+                    history["best_metric"] = -np.inf if maximize else np.inf
+                    history["best_key"] = list(worst_key)
+                    history["best_epoch"] = epoch + 1
+                    metric = history["best_metric"]
+                    sel_key = tuple(worst_key)
+                    ham = np.zeros(0, dtype=np.int64)
+                    det_w, sep_mean = 0.0, 0.0
+                    if ckpt:
+                        ckpt.best_metric = None
+                        ckpt.best_key = None
+                    history["restarts"].append(
+                        {"epoch": epoch, "restart": restarts,
+                         "seed_offset": 1000 * restarts})
+                    print(f"[epoch {epoch}] {cfg.restart_on} separation "
+                          f"{sep_check:.2f} < "
+                          f"{cfg.restart_min_sep} after "
+                          f"{cfg.restart_check_epoch} epochs — restart "
+                          f"{restarts}/{cfg.max_restarts} with seed offset "
+                          f"{1000 * restarts}", flush=True)
 
         if prev_handler is not None:
             signal.signal(signal.SIGUSR1, prev_handler)

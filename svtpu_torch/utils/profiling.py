@@ -3,21 +3,28 @@
   * ``trace(logdir)``: a ``torch.profiler`` trace of the CPU and, where
     there is a card, CUDA activities, written into ``logdir`` as a Chrome
     trace that TensorBoard's profiler plugin and Perfetto read.
+  * ``span(name)``: a ``record_function`` span of the program, in the same
+    trace as the device's events and on its clock, while a profiler runs;
+    otherwise a shared no-op context, so a span costs one check.
   * ``sync``: wait for everything queued before a tensor by reading one of
     its elements on the host.
-  * ``StepTimer``: wall-clock step times with warm-up discard and a
-    percentile summary.
   * ``device_memory_stats``: the caching allocator's byte counters of each
     card.
+
+Spans are named ``svtpu.<layer>.<what>``. A name ends in ``.wait`` where,
+and only where, the host blocks on the card: a synchronous copy in, a
+readback. The spans of one request or one epoch nest under its outermost
+span on the same thread. No span lies inside a captured CUDA graph's body:
+a replay runs no host code, so it would fire at the capture alone.
 """
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -33,6 +40,16 @@ def trace(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` span named ``name`` over a
+    ``with`` block while a profiler runs; otherwise one shared
+    ``nullcontext``: a ``record_function`` costs microseconds to enter and
+    leave even with no profiler running."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -54,31 +71,6 @@ def sync(x) -> None:
     t = _first_tensor(x)
     if t is not None and t.numel():
         t.reshape(-1)[0].item()
-
-
-class StepTimer:
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-        self._n = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._n += 1
-        if self._n > self.warmup:
-            self.times.append(dt)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        a = np.asarray(self.times)
-        return {"mean_s": float(a.mean()), "p50_s": float(np.percentile(a, 50)),
-                "p95_s": float(np.percentile(a, 95)), "steps": len(a)}
 
 
 def device_memory_stats(devices: Optional[Sequence[int]] = None

@@ -85,16 +85,21 @@ def test_lambda_linear_schedule_matches_svtpu():
                                rtol=0, atol=1e-9)
 
 
-def test_step_timer_and_sync():
-    t = profiling.StepTimer(warmup=2)
-    for _ in range(5):
-        with t:
-            x = torch.ones(64, 64) @ torch.ones(64, 64)
-            profiling.sync({"out": [x]})
-    s = t.summary()
-    assert s["steps"] == 3 and 0 < s["p50_s"] <= s["p95_s"]
-    assert profiling.StepTimer().summary() == {}
-    profiling.sync((None, torch.zeros(0), torch.arange(3)))   # no raise
+def test_step_timer_and_sync(monkeypatch):
+    """``sync`` reads one element of the first tensor it finds in a tensor,
+    dict, list or tuple (past ``None``), and reads nothing where that
+    tensor is empty or there is none."""
+    read = []
+    item = torch.Tensor.item
+    monkeypatch.setattr(torch.Tensor, "item",
+                        lambda t: read.append(t.clone()) or item(t))
+    x = torch.ones(64, 64) @ torch.ones(64, 64)
+    profiling.sync({"out": [x]})
+    profiling.sync((None, torch.arange(3) + 5, x))
+    assert [float(t) for t in read] == [64.0, 5.0]
+    profiling.sync((None, torch.zeros(0), torch.arange(3)))
+    profiling.sync({"none": None, "empty": []})
+    assert len(read) == 2
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
