@@ -755,8 +755,8 @@ def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
     the two stages it replaced."""
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01, kernel_weights
-    from svtpu_torch.ops.image import resize_bilinear, to_float01
     from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.pipeline import preprocess
 
     m, dt = pipe.model, pipe.cfg.torch_dtype
     enc = m.encoder_cnn
@@ -773,8 +773,8 @@ def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
         stages = {
             "copy 256x256 uint8 frames to the card":
                 lambda: u8["256x256"].cuda(),
-            "to_float01 + resize 432x768 -> 256x256":
-                lambda: resize_bilinear(to_float01(u8_dev), (256, 256)),
+            "preprocess (to [0, 1], resize) 432x768 -> 256x256":
+                lambda: preprocess(u8_dev, (256, 256)),
             "cast frames to bf16": lambda: xd[:, 0].to(dt),
             "fused_conv01 kernel (its wrapper, packing included)":
                 lambda: fused_conv01(xb, c0.weight, c0.bias, c1.weight,

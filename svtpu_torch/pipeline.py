@@ -14,6 +14,12 @@ runs through the hand-written CUDA kernels. On a card the device work of
 each path's encode (pixel: from the uint8 batch to the codes; percep: the
 RBVAE encode of the latents) is one CUDA graph a batch shape, as
 ``svtpu`` jits it (``models/encode_graph.py``); on the CPU it runs eagerly.
+
+On the graph route a pixel batch of more than ``COPY_CHUNK_BYTES`` goes to
+the card in chunks (``frame_chunks``): each chunk is copied on the
+pipeline's copy stream and resized on the current stream as soon as it has
+landed, while the next one is copied, so the host link and the card work
+at once. The graph then encodes the resized batch whole.
 """
 from __future__ import annotations
 
@@ -24,15 +30,70 @@ from typing import Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from svtpu_torch import batch_seed, resolve_device
 from svtpu_torch.config import RBVAEConfig
 from svtpu_torch.models.encode_graph import GraphedEncodes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops.cuda_graph import graph_route
-from svtpu_torch.ops.image import resize_bilinear, resize_u8, to_float01
+from svtpu_torch.ops.image import resize_u8
 from svtpu_torch.perceptual.embed import preprocess_size
 from svtpu_torch.utils.profiling import span
+
+# A pixel batch of more bytes than this is copied to the card in at most
+# COPY_CHUNKS chunks (``frame_chunks``), the first ones resized while the
+# later ones are still on their way. On an H100, 64 HD frames (177 MB) in 4
+# chunks ran slower than in 8 (the last chunk's resize, which nothing
+# overlaps, is then a quarter of the batch's); 12 and 16 ran no faster.
+COPY_CHUNK_BYTES = 32 << 20
+COPY_CHUNKS = 8
+
+
+def frame_chunks(n: int, nbytes: int) -> list[slice]:
+    """The chunks in which ``run_frames`` copies a batch of ``n`` frames,
+    ``nbytes`` in all, to the card: the whole batch where it holds at most
+    ``COPY_CHUNK_BYTES``, else ``ceil(n / COPY_CHUNKS)`` frames a chunk, the
+    last one shorter."""
+    if nbytes <= COPY_CHUNK_BYTES:
+        return [slice(0, n)]
+    size = -(-n // COPY_CHUNKS)
+    return [slice(a, min(a + size, n)) for a in range(0, n, size)]
+
+
+def preprocess(x_u8: torch.Tensor, hw: tuple) -> torch.Tensor:
+    """uint8 ``[N, H, W, C]`` frames → float32 [0, 1] → ``hw``
+    (antialiased), as a ``[N, h, w, C]`` view of an NCHW batch. The numbers
+    of ``resize_bilinear(to_float01(x_u8), hw)`` (``u * (1 / 255)`` rounds
+    as ``to_float01``'s cast and product do) in fewer passes over the
+    frames: one casts, scales and transposes them to a contiguous NCHW
+    batch, which the resize reads as it is. Frame by frame: a chunk's
+    result is its slice of the batch's."""
+    n, H, W, C = x_u8.shape
+    x = torch.empty((n, C, H, W), dtype=torch.float32, device=x_u8.device)
+    torch.mul(x_u8.permute(0, 3, 1, 2), 1.0 / 255.0, out=x)
+    if (H, W) != tuple(hw):
+        x = F.interpolate(x, size=tuple(hw), mode="bilinear",
+                          align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1)
+
+
+class _Staging:
+    """One batch shape's buffers on the card: the uint8 frames, written
+    chunk by chunk on the copy stream, and the resized batch, written on the
+    compute stream, with each chunk's views of both; an event a chunk,
+    recorded when its copy has landed, and ``free``, recorded after the
+    last chunk's resize, which the next request's copies wait for before
+    they overwrite ``frames``."""
+
+    def __init__(self, shape: tuple, hw: tuple, chunks: list, device):
+        n, _, _, c = shape
+        self.frames = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.resized = torch.empty((n, *hw, c), dtype=torch.float32,
+                                   device=device)
+        self.chunks = [(k, self.frames[k], self.resized[k],
+                        torch.cuda.Event()) for k in chunks]
+        self.free = torch.cuda.Event()
 
 
 class VideoSymbolPipeline(GraphedEncodes):
@@ -56,9 +117,15 @@ class VideoSymbolPipeline(GraphedEncodes):
         frames on the CPU first, as the reference's ``cv2.resize(...,
         INTER_LINEAR)`` does (fewer bytes to move).
       device: CUDA unless ``"cpu"`` is asked for. On a card the encode
-        runs as a CUDA graph a batch shape (``graph_route``);
-        ``drop_graphs()`` frees them.
+        runs as a CUDA graph a batch shape (``graph_route``), and large
+        pixel batches are copied in chunks into staging buffers on the
+        card, one pair a batch shape; ``drop_graphs()`` frees both.
+
+    ``copy_chunks`` counts, over the process, the chunks copied to the
+    card on the chunked route.
     """
+
+    copy_chunks = 0
 
     def __init__(self, cfg: RBVAEConfig, params: Mapping[str, torch.Tensor],
                  *, percep=None, temperature: float = 0.2,
@@ -86,6 +153,13 @@ class VideoSymbolPipeline(GraphedEncodes):
             w, h = preprocess_size(percep.cfg.resize_wh)
             self._sd_hw = (h, w)
         self._graphed = graph_route(self.device) == "graph"
+        self._staging: dict = {}
+        self._copy_stream = None
+
+    def drop_graphs(self) -> None:
+        """Free the encode graphs and the staging buffers."""
+        super().drop_graphs()
+        self._staging = {}
 
     def _frame_batches(self, video_path: str
                        ) -> Iterator[tuple[np.ndarray, int]]:
@@ -181,18 +255,57 @@ class VideoSymbolPipeline(GraphedEncodes):
     def _codes(self, inputs, temperature, noise_ratio, generator):
         """The device work of one batch (``svtpu``'s jitted ``encode`` /
         ``encode_emb``): pixel path, uint8 frames → [0, 1] → resize →
-        codes; percep path, SD latents → codes."""
+        codes, or the frames ``_staged`` resized → codes; percep path, SD
+        latents → codes."""
         (x,) = inputs
-        if self.percep is None:
-            x = resize_bilinear(to_float01(x), tuple(self.cfg.input_hw))
+        if x.dtype == torch.uint8:
+            x = preprocess(x, self.cfg.input_hw).contiguous()
         z = self.model.encode(x[:, None], temperature, self.hard,
                               noise_ratio, deterministic=not self.noise,
                               generator=generator)
         return z[:, 0].to(torch.uint8 if self.hard else torch.float32)
 
+    def _staged(self, frames: torch.Tensor) -> torch.Tensor:
+        """The pixel batch ``frames`` (host) on the card and resized, copied
+        chunk by chunk (``frame_chunks``) on the copy stream, each chunk
+        resized on the current stream once it has landed; or ``frames``
+        as they are where the batch is one chunk (the graph then copies
+        and resizes it whole)."""
+        chunks = frame_chunks(len(frames), frames.nbytes)
+        if len(chunks) == 1:
+            return frames
+        hw = tuple(self.cfg.input_hw)
+        st = self._staging.get(frames.shape)
+        if st is None:
+            st = self._staging[frames.shape] = _Staging(
+                tuple(frames.shape), hw, chunks, self.device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        copy = self._copy_stream
+        compute = torch.cuda.current_stream(self.device)
+        with span("svtpu.pipeline.copy_in"):
+            copy.wait_event(st.free)
+            for k, on_card, resized, landed in st.chunks:
+                with torch.cuda.stream(copy):
+                    on_card.copy_(frames[k], non_blocking=True)
+                    landed.record(copy)
+                compute.wait_event(landed)
+                resized.copy_(preprocess(on_card, hw))
+            st.free.record(compute)
+        VideoSymbolPipeline.copy_chunks += len(chunks)
+        return st.resized
+
     def run_frames(self, frames_u8: np.ndarray,
                    batch_index: int = 0) -> np.ndarray:
-        """Encode one uint8 ``[N, H, W, C]`` frame batch (any resolution)."""
+        """Encode one uint8 ``[N, H, W, C]`` frame batch (any resolution).
+
+        On the graph route a pixel batch of more than ``COPY_CHUNK_BYTES``
+        is copied to the card in chunks, from ``frames_u8`` itself, pinned
+        or pageable (``_staged``; pageable chunks block the host while they
+        are copied, and the card resizes the chunk before meanwhile). This
+        returns after the codes are read back, and the readback is ordered
+        after every copy from ``frames_u8``: the caller may overwrite it as
+        soon as the call returns."""
         with span("svtpu.pipeline.run_frames"):
             frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
             target = self._sd_hw if self.percep is not None \
@@ -202,8 +315,14 @@ class VideoSymbolPipeline(GraphedEncodes):
                 with span("svtpu.pipeline.resize_host"):
                     frames = resize_u8(frames, target)
             seed = batch_seed(self.seed, batch_index) if self.noise else None
-            x = frames if self.percep is None else torch.from_numpy(
-                self.percep.encode_frames(frames.numpy()))
+            if self.percep is not None:
+                x = torch.from_numpy(self.percep.encode_frames(
+                    frames.numpy()))
+            elif self._graphed:
+                with torch.inference_mode():
+                    x = self._staged(frames)
+            else:
+                x = frames
             with span("svtpu.pipeline.encode"), torch.inference_mode():
                 z = self.run_encode("run_frames", self.model,
                                     (self.hard, self.noise), self._codes,

@@ -229,3 +229,98 @@ def test_encode_chunks_graph_equals_eager_bit_for_bit():
             assert np.array_equal(graphed.encode(frames, **kw),
                                   eager.encode(frames, **kw))
         assert EncodeGraph.captures - captures == 1
+
+
+@pytest.fixture(scope="module")
+def hd_requests():
+    """Four seeded batches of 64 uint8 720x1280 frames (177 MB each), each
+    frame a coarse random image upsampled, plus fine noise."""
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for _ in range(4):
+        coarse = torch.rand((64, 3, 9, 16), generator=gen, device="cuda")
+        x = torch.nn.functional.interpolate(coarse, size=(720, 1280),
+                                            mode="bilinear")
+        x = x * 200 + torch.rand(x.shape, generator=gen, device="cuda") * 55
+        out.append(x.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+                   .cpu().numpy())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [True, False], ids=["noisy", "noise-off"])
+@pytest.mark.parametrize("memory", ["pinned", "pageable"])
+def test_run_frames_chunked_copy_equals_one_chunk_bit_for_bit(
+        hd_requests, memory, noise, monkeypatch):
+    """Four requests of 64 HD frames through one host buffer, overwritten
+    with other frames as soon as each ``run_frames`` returns: the chunked
+    graph route's codes equal the one-chunk graph route's and the eager
+    route's bit for bit, request for request; ``copy_chunks`` counts the
+    rule's chunks a request; ``drop_graphs()`` frees the staging buffers.
+    And ``preprocess`` gives ``resize_bilinear(to_float01(x))``'s numbers
+    on the card."""
+    from svtpu_torch import pipeline
+    from svtpu_torch.ops.image import resize_bilinear, to_float01
+    from svtpu_torch.pipeline import VideoSymbolPipeline, frame_chunks
+
+    x = torch.from_numpy(hd_requests[0][:8]).cuda()
+    assert torch.equal(pipeline.preprocess(x, (256, 256)),
+                       resize_bilinear(to_float01(x), (256, 256)))
+
+    cfg = rbvae_variant("contrastive", 25, pallas_trunk=True,
+                        pallas_sampler=True)
+    sd = Seq2SeqBinaryVAE(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(7)
+                          ).state_dict()
+    # The benchmark's gains (``weight_gains``): codes that follow the
+    # frames with the noise off too.
+    for name, gain in (("encoder_cnn.conv.", 6 ** 0.5),
+                       ("encoder_cnn.fc.", 3 ** 0.5)):
+        for key in sd:
+            if key.startswith(name) and key.endswith("weight"):
+                sd[key] = sd[key] * gain
+    shape = hd_requests[0].shape
+    buf = torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy() \
+        if memory == "pinned" else np.empty(shape, np.uint8)
+    k = len(frame_chunks(shape[0], buf.nbytes))
+    assert k == pipeline.COPY_CHUNKS
+
+    def serve(pipe):
+        out = []
+        for i, frames in enumerate(hd_requests):
+            buf[...] = frames
+            out.append(pipe.run_frames(buf, i))
+            buf[...] = 255 - frames
+        return out
+
+    def make():
+        return VideoSymbolPipeline(cfg, sd, temperature=0.3, noise=noise)
+
+    chunked = make()
+    before = VideoSymbolPipeline.copy_chunks
+    got = serve(chunked)
+    assert VideoSymbolPipeline.copy_chunks - before == k * len(hd_requests)
+    eager = make()
+    eager._graphed = False
+    want = serve(eager)
+    with monkeypatch.context() as m:
+        m.setattr(pipeline, "COPY_CHUNK_BYTES", buf.nbytes)
+        one = make()
+        before = VideoSymbolPipeline.copy_chunks
+        whole = serve(one)
+        assert VideoSymbolPipeline.copy_chunks == before
+    for i in range(len(hd_requests)):
+        assert np.array_equal(got[i], want[i]), i
+        assert np.array_equal(whole[i], want[i]), i
+    # Requests, and frames within one, have codes of their own.
+    assert len({c.tobytes() for c in want}) == len(want)
+    assert len({row.tobytes() for row in want[0]}) > 1
+    # The graphs first, then what drop_graphs frees beside them.
+    super(VideoSymbolPipeline, chunked).drop_graphs()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    chunked.drop_graphs()
+    assert not chunked._staging
+    assert held - torch.cuda.memory_allocated() \
+        >= buf.nbytes + shape[0] * 256 * 256 * 3 * 4

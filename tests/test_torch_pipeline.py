@@ -9,8 +9,10 @@ from svtpu.pipeline import VideoSymbolPipeline as JaxPipeline
 from svtpu_torch.config import rbvae_variant
 from svtpu_torch.data.symbols import SymbolStore, pack_codes, unpack_codes
 from svtpu_torch.models.convert import from_jax_params
-from svtpu_torch.ops.image import resize_u8
-from svtpu_torch.pipeline import VideoSymbolPipeline
+from svtpu_torch import pipeline
+from svtpu_torch.ops.image import resize_bilinear, resize_u8, to_float01
+from svtpu_torch.pipeline import (COPY_CHUNKS, VideoSymbolPipeline,
+                                  frame_chunks, preprocess)
 
 from _torch_port import seeded_jax_params
 
@@ -91,6 +93,51 @@ def test_host_resize_matches_cv2_inter_linear(models):
                             resize_on="host").run_frames(frames)
     assert codes.shape == ref_codes.shape == (6, LATENT)
     assert np.mean(codes == ref_codes) > 0.95
+
+
+@pytest.mark.parametrize("n, hw, whole", [
+    (64, (720, 1280), False),       # the HD batch: COPY_CHUNKS chunks
+    (63, (720, 1280), False),       # a short last chunk
+    (5, (2160, 3840), False),       # few large frames: a frame a chunk
+    (64, (256, 256), True),         # host-resized frames, 12.6 MB
+    (1, (720, 1280), True),
+    (11, (720, 1280), True),        # 30.4 MB, under the threshold
+    (0, (720, 1280), True),
+])
+def test_frame_chunks_cover_the_batch_once_in_order(n, hw, whole):
+    """Every frame in one chunk, in order; over ``COPY_CHUNK_BYTES``, at
+    most ``COPY_CHUNKS`` chunks of ``ceil(n / COPY_CHUNKS)`` frames, the
+    last one shorter; under it, the batch whole."""
+    chunks = frame_chunks(n, n * hw[0] * hw[1] * 3)
+    assert [i for c in chunks for i in range(n)[c]] == list(range(n))
+    sizes = [c.stop - c.start for c in chunks]
+    if whole:
+        assert sizes == [n]
+        return
+    size = -(-n // COPY_CHUNKS)
+    assert len(sizes) <= COPY_CHUNKS
+    assert sizes[:-1] == [size] * (len(sizes) - 1)
+    assert 0 < sizes[-1] <= size
+    if n == 64:
+        assert len(sizes) == COPY_CHUNKS
+
+
+@pytest.mark.parametrize("n, hw", [(11, (32, 32)), (9, (60, 90))],
+                         ids=["down", "up"])
+def test_chunked_preprocess_equals_the_whole_batch(monkeypatch, n, hw):
+    """The chunked route's preprocessing, chunk by chunk into slices of one
+    buffer (the last chunk short), equals the whole batch's
+    ``resize_bilinear(to_float01(x))`` bit for bit."""
+    monkeypatch.setattr(pipeline, "COPY_CHUNK_BYTES", 0)
+    frames = torch.from_numpy(_frames(n=n, seed=6))
+    chunks = frame_chunks(n, frames.nbytes)
+    assert len(chunks) > 1 and chunks[-1].stop - chunks[-1].start \
+        < chunks[0].stop - chunks[0].start
+    whole = resize_bilinear(to_float01(frames), hw)
+    out = torch.full_like(whole, float("nan"))
+    for c in chunks:
+        out[c].copy_(preprocess(frames[c], hw))
+    assert torch.equal(out, whole)
 
 
 def test_symbol_store_round_trip(tmp_path):
