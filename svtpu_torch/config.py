@@ -2,7 +2,8 @@
 ``parse_transition_flags`` and ``BUILTIN_VIDEOS`` (``svtpu/config.py:23-106``),
 ``RBVAEConfig`` and ``rbvae_variant`` (``:114-254``), ``TrainConfig``
 (``:262-461``), ``PerceptualConfig`` (``:464-479``) and ``to_json`` /
-``from_json`` (``:482-491``).
+``from_json`` (``:482-491``). ``VJEPA2Config`` is the port's own: the
+video encoder of the clip path, which ``svtpu`` does not have.
 
 Field names and defaults are the reference's, so one config means the same
 model in both packages. ``pallas_trunk`` / ``pallas_sampler`` keep their
@@ -288,6 +289,57 @@ class PerceptualConfig:
     # (``get_percep_embeddings.py:59-66``) — 1280x720 → 1280x704.
     resize_wh: Tuple[int, int] = (1280, 720)
     compute_dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class VJEPA2Config:
+    """V-JEPA 2's video encoder, ViT-L/16 over 64-frame clips at 256x256:
+    the widths of ``facebook/vjepa2-vitl-fpc64-256``'s config.json, and
+    its preprocessing (``video_processing_vjepa2.py``: the shorter side
+    resized to ``int(crop_size * 256 / 224)``, the centre
+    ``crop_size`` square, ImageNet's mean and deviation). The predictor
+    and the attentive pooler are not on the encode path."""
+
+    crop_size: int = 256
+    frames_per_clip: int = 64
+    patch_size: int = 16
+    tubelet_size: int = 2
+    in_chans: int = 3
+    hidden_size: int = 1024
+    num_attention_heads: int = 16
+    num_hidden_layers: int = 24
+    mlp_ratio: float = 4.0
+    layer_norm_eps: float = 1e-6
+    image_mean: Tuple[float, ...] = (0.485, 0.456, 0.406)
+    image_std: Tuple[float, ...] = (0.229, 0.224, 0.225)
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def resize_short(self) -> int:
+        return int(self.crop_size * 256 / 224)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """Tokens along (time, rows, columns) of one clip."""
+        s = self.crop_size // self.patch_size
+        return (self.frames_per_clip // self.tubelet_size, s, s)
+
+    @property
+    def num_tokens(self) -> int:
+        t, h, w = self.grid
+        return t * h * w
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.hidden_size * self.mlp_ratio)
 
     @property
     def torch_dtype(self) -> torch.dtype:

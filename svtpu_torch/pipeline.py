@@ -8,11 +8,16 @@
   percep path: uint8 frames (host) → host resize to the SD input (1280x704)
                → ``PerceptualEncoder.encode_frames`` (SD latents, the
                attention kernel inside) → percep RBVAE encode → codes
+  clip path:   uint8 frames (host) → ``ClipEncoder.encode_frames`` (to the
+               card, resized and cropped there, V-JEPA 2's encoder over
+               64-frame clips, the attention kernel inside; its features
+               stay on the card) → percep RBVAE encode, one code a
+               tubelet of two frames → each tubelet's code on its frames
 
 With ``cfg.pallas_trunk`` and ``cfg.pallas_sampler`` set, the RBVAE encode
 runs through the hand-written CUDA kernels. On a card the device work of
 each path's encode (pixel: from the uint8 batch to the codes; percep: the
-RBVAE encode of the latents) is one CUDA graph a batch shape, as
+RBVAE encode of the latents or features) is one CUDA graph a batch shape, as
 ``svtpu`` jits it (``models/encode_graph.py``); on the CPU it runs eagerly.
 
 On the graph route a pixel batch of more than ``COPY_CHUNK_BYTES`` goes to
@@ -38,6 +43,7 @@ from svtpu_torch.models.encode_graph import GraphedEncodes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.ops.image import resize_u8
+from svtpu_torch.perceptual.clip import ClipEncoder
 from svtpu_torch.perceptual.embed import preprocess_size
 from svtpu_torch.utils.profiling import span
 
@@ -103,7 +109,10 @@ class VideoSymbolPipeline(GraphedEncodes):
       cfg / params: the RBVAE model; ``params`` is its torch state dict
         (reference names, e.g. from ``models.convert.from_jax_params``).
       percep: optional ``PerceptualEncoder``: frames are resized on the
-        host to the SD input and SD-encoded first (the percep-RBVAE path).
+        host to the SD input and SD-encoded first (the percep-RBVAE path);
+        or a ``ClipEncoder``: frames go to the card whole and are encoded
+        in clips, and the RBVAE encodes each tubelet's features (the clip
+        path).
       temperature / hard / noise / noise_ratio: encode protocol (defaults =
         reference eval: temperature 0.2, hard, noise on).
       seed: noise seed; batch ``i`` draws from ``batch_seed(seed, i)``.
@@ -149,9 +158,15 @@ class VideoSymbolPipeline(GraphedEncodes):
         self.depth = depth
         self.resize_on = resize_on
         self.percep = percep
-        if percep is not None:
+        self._clips = isinstance(percep, ClipEncoder)
+        # The size frames are resized to on the host, if they are.
+        self._host_hw = None
+        if percep is None:
+            if resize_on == "host":
+                self._host_hw = tuple(cfg.input_hw)
+        elif not self._clips:
             w, h = preprocess_size(percep.cfg.resize_wh)
-            self._sd_hw = (h, w)
+            self._host_hw = (h, w)
         self._graphed = graph_route(self.device) == "graph"
         self._staging: dict = {}
         self._copy_stream = None
@@ -256,7 +271,7 @@ class VideoSymbolPipeline(GraphedEncodes):
         """The device work of one batch (``svtpu``'s jitted ``encode`` /
         ``encode_emb``): pixel path, uint8 frames → [0, 1] → resize →
         codes, or the frames ``_staged`` resized → codes; percep path, SD
-        latents → codes."""
+        latents → codes; clip path, a tubelet's features → codes."""
         (x,) = inputs
         if x.dtype == torch.uint8:
             x = preprocess(x, self.cfg.input_hw).contiguous()
@@ -305,17 +320,17 @@ class VideoSymbolPipeline(GraphedEncodes):
         are copied, and the card resizes the chunk before meanwhile). This
         returns after the codes are read back, and the readback is ordered
         after every copy from ``frames_u8``: the caller may overwrite it as
-        soon as the call returns."""
+        soon as the call returns. On the clip path a frame's code is its
+        tubelet's (frames ``2j`` and ``2j + 1`` share one)."""
         with span("svtpu.pipeline.run_frames"):
             frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
-            target = self._sd_hw if self.percep is not None \
-                else tuple(self.cfg.input_hw)
-            if (self.percep is not None or self.resize_on == "host") \
-                    and tuple(frames.shape[1:3]) != target:
+            if self._host_hw not in (None, tuple(frames.shape[1:3])):
                 with span("svtpu.pipeline.resize_host"):
-                    frames = resize_u8(frames, target)
+                    frames = resize_u8(frames, self._host_hw)
             seed = batch_seed(self.seed, batch_index) if self.noise else None
-            if self.percep is not None:
+            if self._clips:
+                x = self.percep.encode_frames(frames)
+            elif self.percep is not None:
                 x = torch.from_numpy(self.percep.encode_frames(
                     frames.numpy()))
             elif self._graphed:
@@ -329,5 +344,9 @@ class VideoSymbolPipeline(GraphedEncodes):
                                     (x,), self.temperature, self.noise_ratio,
                                     seed)
             with span("svtpu.pipeline.readback.wait"):
-                return z.cpu().numpy()
+                z = z.cpu().numpy()
+            if self._clips:            # each tubelet's code on its frames
+                z = np.repeat(z, self.percep.cfg.tubelet_size,
+                              axis=0)[:len(frames)]
+            return z
 

@@ -324,3 +324,119 @@ def test_run_frames_chunked_copy_equals_one_chunk_bit_for_bit(
     assert not chunked._staging
     assert held - torch.cuda.memory_allocated() \
         >= buf.nbytes + shape[0] * 256 * 256 * 3 * 4
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_the_vit_shape():
+    """``flash_attention`` at V-JEPA 2's ``[clips * heads, tokens,
+    head_dim]`` = ``[32, 8192, 64]`` in bf16 (``flash_bf16_kernel``)
+    against ``blocked_attention`` in f32 with TF32 off: within two bf16
+    steps at the output's scale (p is rounded to bf16 in the kernel, not
+    in the plain version), scores spread wide (std 3)."""
+    from svtpu_torch.ops.attention import (blocked_attention,
+                                           flash_attention, kernel_for)
+
+    _require_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn((32, 8192, 64), generator=gen, device="cuda")
+               for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    assert kernel_for(torch.bfloat16, 64) == "bf16"
+    before = flash_attention.launches_by_kernel["bf16"]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_kernel["bf16"] == before + 1
+    want = blocked_attention(q, k, v).float()
+    step = 2.0 ** -7 * float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= 2 * step
+
+
+@pytest.fixture(scope="module")
+def clip_requests():
+    """Three batches of 70 uint8 360x640 frames (two clips, the second
+    padded with 58 copies of frame 69), page-locked."""
+    _require_card()
+    rng = np.random.default_rng(12)
+    out = []
+    for _ in range(3):
+        buf = torch.empty((70, 360, 640, 3), dtype=torch.uint8,
+                          pin_memory=True)
+        buf.copy_(torch.from_numpy(rng.integers(0, 256, buf.shape,
+                                                np.uint8)))
+        out.append(buf.numpy())
+    return out
+
+
+@pytest.mark.cuda
+def test_clip_encoder_graph_equals_eager_bit_for_bit(clip_requests):
+    """V-JEPA 2's encoder at its published widths (seeded weights) through
+    ``ClipEncoder.encode_frames``, three requests on the graph route (the
+    first eager, the second captured, then a replay) and on the eager
+    route: equal features request for request, one capture, a
+    ``flash_bf16_kernel`` launch a layer and request; then ``run_frames``
+    of a percep RBVAE over the features on both routes: equal codes, a
+    tubelet's code on both of its frames."""
+    from svtpu_torch.config import VJEPA2Config
+    from svtpu_torch.models.encode_graph import EncodeGraph
+    from svtpu_torch.models.vjepa2 import VJEPA2
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.perceptual.clip import ClipEncoder
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    _require_card()
+    cfg = VJEPA2Config()
+    params = VJEPA2(cfg, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(8)
+                    ).state_dict()
+    graphed, eager = (ClipEncoder(params, cfg) for _ in range(2))
+    eager._graphed = False
+    captures = EncodeGraph.captures
+    for frames in clip_requests:
+        before = flash_attention.launches_by_kernel["bf16"]
+        got = graphed.encode_frames(frames).clone()
+        assert flash_attention.launches_by_kernel["bf16"] - before \
+            == cfg.num_hidden_layers
+        want = eager.encode_frames(frames)
+        assert got.shape == (64, 16, 16, 1024) and got.dtype == torch.bfloat16
+        assert torch.equal(got, want)
+    assert EncodeGraph.captures - captures == 1
+
+    rb = rbvae_variant("percep", 25, lstm_residual=True, in_channels=1024,
+                       out_channels=1024, input_hw=(16, 16),
+                       compute_dtype="bfloat16", pallas_sampler=True)
+    sd = Seq2SeqBinaryVAE(rb, device="cpu",
+                          generator=torch.Generator().manual_seed(9)
+                          ).state_dict()
+    codes = []
+    for enc in (graphed, eager):
+        pipe = VideoSymbolPipeline(rb, sd, percep=enc, temperature=0.3)
+        pipe._graphed = enc._graphed
+        codes.append([pipe.run_frames(f, i)
+                      for i, f in enumerate(clip_requests)])
+    for g, e in zip(*codes):
+        assert g.shape == (70, 25) and np.array_equal(g, e)
+        assert np.array_equal(g[0::2], g[1::2])
+
+
+@pytest.mark.cuda
+def test_rope_tables_built_once(clip_requests):
+    """The rotary tables are built when the encoder is, once, on the card,
+    and no encode (eager, captured or replayed) builds them again."""
+    from svtpu_torch.config import VJEPA2Config
+    from svtpu_torch.models.vjepa2 import VJEPA2
+    from svtpu_torch.ops.rope import rope_tables
+    from svtpu_torch.perceptual.clip import ClipEncoder
+
+    _require_card()
+    cfg = VJEPA2Config(num_hidden_layers=1)
+    params = VJEPA2(cfg, device="cuda").state_dict()
+    before = rope_tables.builds
+    enc = ClipEncoder(params, cfg)
+    assert rope_tables.builds == before + 1
+    assert enc.model.rope_cos.device.type == "cuda"
+    assert enc.model.rope_cos.dtype == torch.float32
+    for frames in clip_requests:
+        enc.encode_frames(frames)
+    torch.cuda.synchronize()
+    assert rope_tables.builds == before + 1
