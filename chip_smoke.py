@@ -146,13 +146,16 @@ TEMPERATURE = 0.2
 PERCEP_FRAMES = 16
 PERCEP_BATCH = 8
 PERCEP_ATTN = (PERCEP_BATCH, 88 * 160, 512)
+# V-JEPA 2's attention on the clip path, [clips * heads, tokens, head_dim]
+# at 2 clips a request.
+VIT_ATTN = (2 * 16, 8192, 64)
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # The bf16 kernels meant for the tensor cores (substrings of their symbols).
 TENSOR_CORE_KERNELS = ("fused_conv01_tc", "flash_d512_kernel",
-                       "flash_bf16_kernel")
+                       "flash_bf16_kernel", "flash_mma_kernel")
 # Each kernel's time before its redesign for Hopper (PERF.md §6, NVIDIA
 # H100 80GB HBM3, 700.00 W): constants, printed on a line of their own
 # beside this run's times and kept out of the kernels line. For
@@ -160,7 +163,7 @@ TENSOR_CORE_KERNELS = ("fused_conv01_tc", "flash_d512_kernel",
 # plain 2-layer encoder LSTM and the standalone binary_concrete kernel.
 PREV_MS = {"fused_conv01": 10.507, "binary_concrete": 0.0287,
            "lstm_binary_concrete": 0.5085 + 0.0377,
-           "flash_attention": 32.464}
+           "flash_attention": 32.464, "flash_attention_d64": 15.1}
 # lstm_binary_concrete's checks: (B, T, H, layers, residual); the pixel
 # and percep paths' shapes first, then ragged T and batch, H = 32, and
 # widths with two hidden units per lane: H = 50 (the benchmarks' latent;
@@ -603,7 +606,9 @@ def phase_attention_kernel() -> dict:
     is rounded to bf16 in the kernel and not in the plain version). Scores
     spread wide (std 8) and one case with a dominant key per row, so that a
     wrong running-max rescale shows. The bf16 cases at D = 512 run the
-    D = 512 kernel, those at D = 64 and 96 the first bf16 kernel."""
+    D = 512 kernel, those at D = 64 (ragged against its 192-row blocks and
+    128-key tiles, and V-JEPA 2's [32, 8192, 64]) the D = 64 kernel, the
+    one at D = 96 the mma.sync kernel."""
     from svtpu_torch.ops.attention import kernel_for
 
     B, N, D = PERCEP_ATTN
@@ -618,6 +623,12 @@ def phase_attention_kernel() -> dict:
             "[2,1000,64] bf16 spread 8 (ragged)": (2, 1000, 64,
                                                    torch.bfloat16, 14,
                                                    dict(spread=8.0)),
+            "[1,8191,64] bf16 (ragged)": (1, 8191, 64, torch.bfloat16, 19,
+                                          {}),
+            "[2,4000,64] bf16 dominant key (ragged)": (
+                2, 4000, 64, torch.bfloat16, 20, dict(dominant=True)),
+            "[32,8192,64] bf16 spread 8": (32, 8192, 64, torch.bfloat16, 22,
+                                           dict(spread=8.0)),
             "[2,1000,512] bf16 spread 8 (ragged)": (2, 1000, 512,
                                                     torch.bfloat16, 18,
                                                     dict(spread=8.0)),
@@ -638,7 +649,8 @@ def phase_attention_kernel() -> dict:
               f"{kernel_for(dt, d)}: max_abs_err {err:.3e} (limit "
               f"{2 * step:.3e}, two bf16 steps at the output's scale)")
         require(err <= 2 * step, f"flash_attention {name} disagrees")
-    return {"max_abs_err": out[f"[{B},{N},{D}] bf16 spread 8"]}
+    return {"max_abs_err": out[f"[{B},{N},{D}] bf16 spread 8"],
+            "max_abs_err_d64": out["[32,8192,64] bf16 spread 8"]}
 
 
 def flagship(pallas: bool, dtype: str = "bfloat16"):
@@ -1087,6 +1099,87 @@ def phase_percep_path(card: str) -> dict:
             "weights": weights}
 
 
+CLIP_FRAMES = 128
+
+
+def phase_clip_path(card: str) -> dict:
+    """The clip path at full width, as the clip cell drives it: 128 seeded
+    uint8 720x1280 frames in page-locked memory (two 64-frame clips)
+    through ``run_frames`` of a percep RBVAE over V-JEPA 2's encoder
+    (``ClipEncoder``, seeded weights at the published widths), three
+    requests: eager, captured, replayed. Every attention launch must be
+    the D = 64 kernel's, one a layer and request, and none the mma.sync
+    kernel's; a tubelet's code is on both of its frames."""
+    from svtpu_torch.config import VJEPA2Config, rbvae_variant
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.models.vjepa2 import VJEPA2
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.perceptual.clip import ClipEncoder
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    t0 = time.perf_counter()
+    vcfg = VJEPA2Config()
+    params = VJEPA2(vcfg, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(30)
+                    ).state_dict()
+    enc = ClipEncoder(params, vcfg)
+    rb = rbvae_variant("percep", LATENT, lstm_residual=True,
+                       in_channels=vcfg.hidden_size,
+                       out_channels=vcfg.hidden_size,
+                       input_hw=vcfg.grid[1:], compute_dtype="bfloat16",
+                       pallas_sampler=True)
+    sd = Seq2SeqBinaryVAE(rb, device="cpu",
+                          generator=torch.Generator().manual_seed(31)
+                          ).state_dict()
+    pipe = VideoSymbolPipeline(rb, sd, percep=enc, batch=CLIP_FRAMES)
+    buf = torch.empty((CLIP_FRAMES, 720, 1280, 3), dtype=torch.uint8,
+                      pin_memory=True)
+    buf.copy_(torch.from_numpy(np.random.default_rng(32).integers(
+        0, 256, buf.shape, np.uint8)))
+    frames = buf.numpy()
+    print(f"clip path: encoder, pipeline and frames built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    by_kernel = flash_attention.launches_by_kernel
+    for name in by_kernel:
+        by_kernel[name] = 0
+    flash_attention.launches = 0
+    requests = 3
+    torch.cuda.reset_peak_memory_stats()
+    codes = [pipe.run_frames(frames, i) for i in range(requests)]
+    torch.cuda.synchronize()
+    counts = dict(by_kernel)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"clip path: run_frames x{requests} ({CLIP_FRAMES} frames "
+          f"720x1280, eager, captured, replayed); flash_attention by kernel "
+          f"{counts}, {counts['bf16_d64'] / requests:.0f} a request; peak "
+          f"device memory {peak:.2f} GiB")
+    require(counts["bf16_d64"] == requests * vcfg.num_hidden_layers,
+            f"clip path: {vcfg.num_hidden_layers} D = 64 launches a request")
+    require(counts["bf16"] == 0 and flash_attention.launches
+            == counts["bf16_d64"], "clip path: attention off the D = 64 "
+            "kernel")
+    for c in codes:
+        require(c.shape == (CLIP_FRAMES, LATENT) and set(np.unique(c))
+                <= {0, 1} and np.array_equal(c[0::2], c[1::2]),
+                "clip path codes")
+
+    fps = []
+    for t in range(5):
+        t0 = time.perf_counter()
+        pipe.run_frames(frames, 10 + t)
+        fps.append(CLIP_FRAMES / (time.perf_counter() - t0))
+    med = statistics.median(fps)
+    print(f"time: clip run_frames ({CLIP_FRAMES} uint8 720x1280 pinned host "
+          f"frames in, codes out): {med:.2f} frames/s median of 5, spread "
+          f"{(max(fps) - min(fps)) / med:.3f} [{card}]")
+    pipe.drop_graphs()
+    enc.drop_graphs()
+    del pipe, enc, params, buf
+    torch.cuda.empty_cache()
+    return {"launches": counts, "requests": requests, "fps": med}
+
+
 def phase_percep_breakdown(card: str, pipe, frames, batch) -> None:
     """Where one SD batch's time goes: each stage of encode_frames and the
     RBVAE encode alone, on the input the path gives it, CUDA events; the
@@ -1267,7 +1360,7 @@ WRAPPER_KERNELS = {
     "lstm_binary_concrete": ("lstm_binary_concrete_kernel",),
     "binary_concrete_fused": ("binary_concrete_kernel",),
     "flash_attention": ("flash_d512_kernel", "flash_bf16_kernel",
-                        "flash_f32_kernel")}
+                        "flash_mma_kernel", "flash_f32_kernel")}
 
 
 def traced_replays(graphs, tag: str, shape: list, fn, n: int, what: str,
@@ -1357,7 +1450,7 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
     from svtpu_torch.models.encode_graph import EncodeGraph
     from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
     from svtpu_torch.ops.image import resize_u8
-    from svtpu_torch.pipeline import VideoSymbolPipeline
+    from svtpu_torch.pipeline import VideoSymbolPipeline, preprocess
     from svtpu_torch.training.schedules import temperature_schedule
     from svtpu_torch.training.trainer import Trainer
     from svtpu_torch.utils import profiling
@@ -1393,11 +1486,14 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
         calls = [(px, i) for i in range(3)]
         if noise:
             calls += [(px_large, 3), (px_large, 4)]
+        # One key for both frame sizes: batches over COPY_CHUNK_BYTES are
+        # copied in chunks and resized before the graph, whose input is
+        # then the resized [BATCH, 256, 256, 3] batch (pipeline._staged).
         owner = encode_routes(
             f"pixel run_frames, flagship, batch {BATCH}, bf16, both "
             f"kernels, 256x256{' and 432x768' if noise else ''}, {tag}",
             lambda: VideoSymbolPipeline(cfg, sd, noise=noise), frames_run,
-            calls, 2 if noise else 1, card)
+            calls, 1, card)
         if noise:
             pipe = owner
         else:
@@ -1412,7 +1508,10 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
             f"pixel run_frames, latent {WIDE_LATENT}, f32, batch 64, {tag}",
             lambda: VideoSymbolPipeline(wide_cfg, wide_sd, noise=noise),
             frames_run, [(px[:64], i) for i in range(3)], 1, card)
-    x_dev = torch.from_numpy(px).cuda()
+    # The captured key's input: a batch over COPY_CHUNK_BYTES reaches the
+    # graph resized, in f32 (pipeline._staged).
+    x_dev = preprocess(torch.from_numpy(px).cuda(),
+                       tuple(pipe.cfg.input_hw)).contiguous()
     z = replay_quietly(pipe.encode_graphs(), "run_frames", pipe.model,
                        (pipe.hard, pipe.noise), pipe._codes, (x_dev,),
                        pipe.temperature, pipe.noise_ratio,
@@ -4970,7 +5069,8 @@ def instance(symbol: str) -> str:
 def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
                        percep: dict, simple: dict, wide: dict, graphs: dict,
                        train: dict, evaluation: dict, cli: dict,
-                       video: dict, rest: dict, multi: dict) -> list:
+                       video: dict, rest: dict, multi: dict,
+                       clip: dict) -> list:
     """Each kernel's row of the kernels line: its time, its plain
     version's, a library call's where one computes the same function, its
     bound, and its launches on every path of this run (the evaluation,
@@ -5141,10 +5241,37 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
           f", "
           f"spill bytes {rows[-1]['spill_bytes']} [{card}]")
 
+    att = errs["flash_attention"]
+    rows.append(attention_row(
+        card, build, "flash_attention", "flash_d512_kernel", PERCEP_ATTN, 17,
+        {"percep": percep["launches"]["flash_attention"],
+         "graph routes": graphs["launches"]["flash_attention"],
+         "evaluation": eval_launches("flash_attention"),
+         "cli": cli["launches"]["flash_attention"],
+         "video": video["launches"]["flash_attention"],
+         "rest": rest["launches"]["flash_attention"],
+         "multi card": multi["launches"]["flash_attention"]},
+        att["max_abs_err"], ms_2x14080x512=multi["attn_ms_b2"]))
+    rows.append(attention_row(
+        card, build, "flash_attention_d64", "flash_bf16_kernel", VIT_ATTN, 23,
+        {"clip": clip["launches"]["bf16_d64"]}, att["max_abs_err_d64"],
+        device_n=20))
+    return rows
+
+
+def attention_row(card: str, build: dict, name: str, symbol: str,
+                  shape: tuple, seed: int, launches: dict, err: float,
+                  device_n: int = 0, **extra) -> dict:
+    """The kernels line's row of ``flash_attention`` at bf16 ``shape``, the
+    kernel whose symbol holds ``symbol``: its time, its plain version's,
+    ``scaled_dot_product_attention``'s as the yardstick only, its bound
+    (4·B·N²·D operations; q, k, v and the output once), its registers, and
+    ``launches`` by path. With ``device_n``, also the device time of one
+    launch in a CUDA graph of ``device_n``."""
     from svtpu_torch.ops.attention import blocked_attention, flash_attention
 
-    B, N, D = PERCEP_ATTN
-    q, k, v = attention_inputs(B, N, D, torch.bfloat16, 17)
+    B, N, D = shape
+    q, k, v = attention_inputs(B, N, D, torch.bfloat16, seed)
     ms, sp = cuda_ms(lambda: flash_attention(q, k, v), warmup=3, iters=3)
     plain_ms, _ = cuda_ms(lambda: blocked_attention(q, k, v), warmup=2,
                           trials=3, iters=2)
@@ -5155,37 +5282,29 @@ def phase_kernel_times(card: str, build: dict, main: dict, errs: dict,
     flops = 4 * B * N * N * D
     bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
              "bytes": 4 * B * N * D * 2 / PEAK_BYTES * 1e3}
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="svtpu_torch/csrc/flash_attention.cu",
-        replaces="svtpu/ops/attention.py:26",
-        launches=percep["launches"]["flash_attention"]
-        + graphs["launches"]["flash_attention"]
-        + eval_launches("flash_attention")
-        + cli["launches"]["flash_attention"]
-        + video["launches"]["flash_attention"]
-        + rest["launches"]["flash_attention"]
-        + multi["launches"]["flash_attention"],
-        max_abs_err=errs["flash_attention"]["max_abs_err"], ms=ms,
-        plain_ms=plain_ms, bound_ms=max(bound.values()),
-        bound_by=max(bound, key=bound.get), library_ms=lib_ms,
-        ms_2x14080x512=multi["attn_ms_b2"]))
-    print(f"time: flash_attention bf16 [{B},{N},{D}]: kernel {ms:.3f} ms "
-          f"(spread {sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s, "
-          f"{max(bound.values()) / ms:.1%} of bound), plain "
-          f"{plain_ms:.3f} ms, scaled_dot_product_attention ({backend}) "
-          f"{lib_ms:.3f} ms (kernel {'faster' if ms < lib_ms else 'SLOWER'})"
-          f", bound {max(bound.values()):.3f} ms "
-          f"({max(bound, key=bound.get)}: {flops / 1e12:.3f} TFLOP), "
-          f"launches on the percep path "
-          f"{percep['launches']['flash_attention']}, graph routes "
-          f"{graphs['launches']['flash_attention']}, evaluation "
-          f"{eval_launches('flash_attention')}, cli "
-          f"{cli['launches']['flash_attention']}, video "
-          f"{video['launches']['flash_attention']}, rest "
-          f"{rest['launches']['flash_attention']}, multi card "
-          f"{multi['launches']['flash_attention']} [{card}]")
-    return rows
+    (usage,) = [r for fn, r in build.items() if symbol in fn]
+    row = dict(
+        name=name, route="cuda", source="svtpu_torch/csrc/flash_attention.cu",
+        replaces="svtpu/ops/attention.py:26", launches=sum(launches.values()),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bound.values()), bound_by=max(bound, key=bound.get),
+        library_ms=lib_ms, registers=usage.get("registers"), **extra)
+    device = ""
+    if device_n:
+        row["device_ms"], dev_sp = graph_ms(lambda: flash_attention(q, k, v),
+                                            n=device_n)
+        device = (f", device {row['device_ms']:.3f} ms (a CUDA graph of "
+                  f"{device_n} launches, spread {dev_sp:.3f})")
+    print(f"time: flash_attention bf16 [{B},{N},{D}] ({symbol}): kernel "
+          f"{ms:.3f} ms (spread {sp:.3f}, {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{max(bound.values()) / ms:.1%} of bound){device}, plain "
+          f"{plain_ms:.3f} ms, scaled_dot_product_attention ({backend}, the "
+          f"yardstick only) {lib_ms:.3f} ms (kernel "
+          f"{'faster' if ms < lib_ms else 'SLOWER'}), bound "
+          f"{max(bound.values()):.3f} ms ({max(bound, key=bound.get)}: "
+          f"{flops / 1e9:.1f} GFLOP), launches by path {launches}; "
+          f"registers {usage.get('registers')} at launch [{card}]")
+    return row
 
 
 def main() -> None:
@@ -5208,6 +5327,7 @@ def main() -> None:
     simple = phase_simple_path(card)
     wide = phase_wide_path(card)
     percep = phase_percep_path(card)
+    clip = phase_clip_path(card)
     graphs = phase_encode_graphs(card, percep.pop("weights"))
     train = phase_train_path(card)
     evaluation = phase_eval_path(card)
@@ -5217,7 +5337,7 @@ def main() -> None:
     multi = phase_multi_card(card)
     rows = phase_kernel_times(card, build, main_path, errs, percep, simple,
                               wide, graphs, train, evaluation, cli, video,
-                              rest, multi)
+                              rest, multi, clip)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     print("before the redesign (constants from PERF.md §6, not measured "

@@ -59,19 +59,64 @@
 // - The TMA maps come from cuTensorMapEncodeTiled, found through
 //   cudaGetDriverEntryPoint (no link against libcuda).
 //
-// bf16 at other D (multiples of 32 up to 512), flash_bf16_kernel, the first
-// version: the output width split across the 8 warps of one block, each
-// warp holding all 64 rows x D/8 columns; the 64 x 64 score tile computed
-// once per block over the whole D (each warp a 16 x 32 piece) and shared as
-// f32 and as bf16 p through shared memory; tiles loaded synchronously.
+// bf16 at D = 64 (V-JEPA 2's heads: [clips x 16, 8,192, 64] on the clip
+// path), d64::flash_bf16_kernel, warp-specialised on wgmma and TMA:
+// - Bound by operations: at [32, 8192, 64] the two products are 549.8 GFLOP
+//   against 134 MB of q, k, v and out, 0.556 ms at the bf16 tensor-core
+//   rate and 0.040 ms of bytes.
+// - The exponentials matter at this width. A score costs 4 D = 256 FLOPs
+//   on the tensor cores (1/16 of an SM's clock at 989 TFLOP/s) and one ex2
+//   on the MUFU units, which do 16 an SM and clock: also 1/16. Run after
+//   the products, the softmax alone would hold the kernel under half of
+//   the peak, so the design keeps it beside them.
+// - One block per 192 query rows of one (clip, head) slice, four
+//   warpgroups. Warpgroup 0 is the producer: its registers lowered to 24
+//   (setmaxnreg), one thread keeps TMA loads in flight: q once (192 x 64),
+//   then k and v as 128-key x 64 tiles (16 KB each, 128-byte swizzle, zeros
+//   past N from the 3-D [B, N, D] maps) through a ring of 4 stages on full
+//   and empty mbarriers. Warpgroups 1-3 are consumers of 64 rows each, at
+//   160 registers.
+// - S = q k^T with 4 wgmma m64n128k16, q and k from shared memory. The
+//   softmax runs in registers in the accumulator's layout (each lane holds
+//   64 scores of 2 rows; row maxima take 2 shuffles; l is summed a lane and
+//   reduced once at the end). p is rounded to bf16 in registers and is the
+//   register A operand of p v (8 wgmma m64n64k16, v MN-major: the transpose
+//   bit). No score passes through shared memory.
+// - The softmax hides under the tensor cores two ways: within a
+//   warpgroup, step j issues q k(j)^T and p v(j - 1) and runs the softmax
+//   of tile j while p v(j - 1) runs; across warpgroups, the three
+//   consumers issue their products in turn (named barriers, a ring), so
+//   one's exponentials run while the others' products are on the tensor
+//   cores (faster than free-running consumers, and three consumers faster
+//   than two: PERF.md). The accumulator's rescale is skipped when no row
+//   maximum of the warp moved.
+// - The exponential is ex2.approx.ftz of s * (scale log2 e) - m log2 e in
+//   one FFMA: the scaled score's and the argument's rounding cost a few f32
+//   ulps of p, far below its bf16 rounding; m is the max of the scaled
+//   scores (max(s) * scale, equal to max(s * scale) since scale > 0).
+// - Shared memory: q 24,576 + k and v 4 x 2 x 16,384 + 17 mbarriers +
+//   1,024 of alignment = 156,808 bytes: one block per SM.
+// - Grid ceil(N / 192) x B: 43 x 32 = 1,376 blocks at [32, 8192, 64],
+//   10.4 waves on 132 SMs (the last row block of a slice two-thirds full).
+//   No atomics and no split over keys: deterministic, as a graph replay
+//   must be bit for bit.
+//
+// bf16 at other D (multiples of 32 up to 512 other than 64 and 512: no
+// model of the repo runs one; chip_smoke.py checks 96), flash_mma_kernel,
+// the first version, on mma.sync: the output width split across the 8
+// warps of one block, each warp holding all 64 rows x D/8 columns; the
+// 64 x 64 score tile computed once per block over the whole D (each warp a
+// 16 x 32 piece) and shared as f32 and as bf16 p through shared memory;
+// tiles loaded synchronously.
 //
 // f32 inputs take a third, plain kernel on the CUDA cores (32 x 32 tiles,
 // f32 FMAs, p kept in f32 as the TPU kernel's p.astype(float32) does), used
 // by the f32 parity checks.
 //
 // ops/attention.py::kernel_for chooses the kernel from (dtype, D) and
-// passes it to the launcher: bf16 and D = 512 -> flash_d512_kernel; other
-// bf16 -> flash_bf16_kernel; f32 -> flash_f32_kernel.
+// passes it to the launcher: bf16 and D = 512 -> flash_d512_kernel; bf16
+// and D = 64 -> d64::flash_bf16_kernel; other bf16 -> flash_mma_kernel;
+// f32 -> flash_f32_kernel.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -122,7 +167,7 @@ __device__ __forceinline__ float online_softmax(float* s, int sub, int valid,
   return alpha;
 }
 
-// ------------------------------------------------- bf16: tensor-core kernel
+// ---------------------------------------- bf16, other D: mma.sync kernel
 
 constexpr int kBQ = 64;         // query rows of a block
 constexpr int kBK = 64;         // keys of a tile
@@ -162,7 +207,7 @@ __device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
 // 2t, 2t+1, 2t+8, 2t+9; B holds k rows 2t, 2t+1, 2t+8, 2t+9 of column g;
 // C holds rows g, g+8 and columns 2t, 2t+1.
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+flash_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                   const uint16_t* __restrict__ v, uint16_t* __restrict__ out,
                   int N, int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -578,6 +623,308 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int N,
 
 }  // namespace d512
 
+// -------------------------------------------- bf16, D = 64: the clip kernel
+
+namespace d64 {
+
+constexpr int kD = 64;                      // a key's row: one 128-byte row
+constexpr int kConsumers = 3;               // consumer warpgroups of a block
+constexpr int kRows = 64 * kConsumers;      // query rows of a block
+constexpr int kKeys = 128;                  // keys of a tile
+constexpr int kStages = 4;                  // k and v tiles in flight
+constexpr int kThreadsWS = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536,
+              "the register file of one SM");
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, in bytes from a 1,024-aligned base: q, the k ring, the v
+// ring, then the mbarriers (q; k and v full; k and v empty).
+constexpr int kQBytes = kRows * kD * 2;
+constexpr int kTileBytes = kKeys * kD * 2;
+constexpr int kSmemK = kQBytes;
+constexpr int kSmemV = kSmemK + kStages * kTileBytes;
+constexpr int kSmemBars = kSmemV + kStages * kTileBytes;
+constexpr int kSmemBytes = kSmemBars + (1 + 4 * kStages) * 8 + 1024;
+static_assert(kSmemBytes == 156808, "shared memory sum of the header note");
+
+// Arrival of one warp (its lane 0) on an empty barrier: the warp no longer
+// reads that stage.
+__device__ __forceinline__ void release(uint64_t* bar) {
+  if ((threadIdx.x & 31) == 0) svt::mbar_arrive(bar);
+}
+
+// S = q k^T of one warpgroup: 64 rows x 128 keys over D = 64, four wgmma
+// m64n128k16 on the 128-byte-swizzled q rows and k tile.
+__device__ __forceinline__ void issue_scores(float* s, const uint16_t* q,
+                                             const uint16_t* k) {
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks)
+    svt::wgmma_m64n128k16_ss(s, svt::desc_sw128(q + 16 * ks, 16, 1024),
+                             svt::desc_sw128(k + 16 * ks, 16, 1024), ks);
+}
+
+// acc += p v: p (64 x 128 keys, bf16 in registers, 8 A fragments) times the
+// v tile (128 keys x 64, MN-major), eight wgmma m64n64k16.
+__device__ __forceinline__ void issue_pv(float* acc, uint32_t (*pa)[4],
+                                         const uint16_t* v) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    svt::wgmma_m64n64k16_rs_tb(acc, pa[kk],
+                               svt::desc_sw128(v + 16 * kk * kD, 8192, 1024));
+}
+
+// Online softmax of one tile in the accumulator's layout: s[4 j + e] is row
+// g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2. Masks keys at or past N,
+// updates the running max m (scaled scores) and this lane's share of l,
+// leaves the unrounded p in s and the rescale factors in alpha.
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
+                                             float* alpha, int k0, int N,
+                                             int t, float scale,
+                                             float scale_log2) {
+  if (k0 + kKeys > N) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= N) s[i] = -INFINITY;
+  }
+  // Row maxima of the raw scores, two partial maxima a row; scale > 0, so
+  // max(s) * scale rounds to max(s * scale) exactly.
+  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[i & 3] = fmaxf(mx[i & 3], s[i]);
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = fmaxf(mx[2 * r], mx[2 * r + 1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], x * scale);
+    alpha[r] = m_new == m[r] ? 1.f : svt::ex2((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+    mb[r] = m_new * kLog2e;
+  }
+  // p = exp(s * scale - m) as 2^(s * scale log2 e - m log2 e).
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = svt::ex2(fmaf(s[i], scale_log2, -mb[(i >> 1) & 1]));
+    sum[i & 3] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * alpha[r] + (sum[2 * r] + sum[2 * r + 1]);
+}
+
+// p rounded to bf16 in pairs: the accumulator of keys 16 kk .. 16 kk + 15
+// is the A fragment of the kk-th k-step of p v as it stands.
+__device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      pa[kk][u] = svt::pack_bf16(s[8 * kk + 2 * u], s[8 * kk + 2 * u + 1]);
+}
+
+// Keep p's registers, which p v reads asynchronously, alive up to here.
+__device__ __forceinline__ void hold_p(uint32_t (*pa)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) asm volatile("" : "+r"(pa[kk][u])::"memory");
+}
+
+// The consumers issue their products in turn, c = 0, 1, 2, 0, ...: named
+// barrier 1 + c over two warpgroups, on which c waits and its predecessor
+// in the ring arrives once it has issued its own.
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (c + 1) % kConsumers)
+               : "memory");
+}
+
+// grid (ceil(N / kRows), B), kThreadsWS threads: warpgroup 0 loads, the
+// others compute 64 query rows each; see the header note.
+__global__ void __launch_bounds__(kThreadsWS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  uint16_t* __restrict__ out, int N, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_d64[];
+  unsigned char* sm =
+      smem_d64 + ((1024 - (svt::smem_u32(smem_d64) & 1023)) & 1023);
+  uint16_t* Qs = reinterpret_cast<uint16_t*>(sm);
+  uint16_t* Ks = reinterpret_cast<uint16_t*>(sm + kSmemK);
+  uint16_t* Vs = reinterpret_cast<uint16_t*>(sm + kSmemV);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + kSmemBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int batch = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int tiles = (N + kKeys - 1) / kKeys;
+  if (tid == 0) {
+    svt::mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      svt::mbar_init(k_full + st, 1);
+      svt::mbar_init(v_full + st, 1);
+      svt::mbar_init(k_empty + st, 4 * kConsumers);
+      svt::mbar_init(v_empty + st, 4 * kConsumers);
+    }
+    svt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full. Tile j waits for the
+    // consumers to release tile j - kStages from its stage.
+    svt::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      svt::mbar_expect_tx(q_full, kQBytes);
+      svt::tma_load_3d(Qs, &tq, q_full, 0, q0, batch);
+      for (int j = 0; j < tiles; ++j) {
+        const int st = j % kStages;
+        const uint32_t parity = ((j / kStages) & 1) ^ 1;
+        if (j >= kStages) svt::mbar_wait(k_empty + st, parity);
+        svt::mbar_expect_tx(k_full + st, kTileBytes);
+        svt::tma_load_3d(Ks + st * kKeys * kD, &tk, k_full + st, 0, j * kKeys,
+                         batch);
+        if (j >= kStages) svt::mbar_wait(v_empty + st, parity);
+        svt::mbar_expect_tx(v_full + st, kTileBytes);
+        svt::tma_load_3d(Vs + st * kKeys * kD, &tv, v_full + st, 0, j * kKeys,
+                         batch);
+      }
+    }
+  } else {
+    // Consumer c: query rows q0 + 64 c .. q0 + 64 c + 63. Step j issues
+    // q k(j)^T and p v(j - 1) in c's turn, then runs the softmax of tile j
+    // while p v(j - 1) and the other consumers' products are on the tensor
+    // cores.
+    svt::setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint16_t* q_mine = Qs + c * 64 * kD;
+    const float scale_log2 = scale * kLog2e;
+    float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f}, alpha[2];
+    float s[64], acc[32];
+    uint32_t pa[kKeys / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    if (c == kConsumers - 1) turn_pass(c);  // consumer 0 goes first
+    svt::mbar_wait(q_full, 0);
+    svt::mbar_wait(k_full, 0);
+    turn_wait(c);
+    svt::wgmma_fence();
+    issue_scores(s, q_mine, Ks);
+    svt::wgmma_commit();
+    turn_pass(c);
+    svt::wgmma_wait<0>();
+    svt::fence_regs<64>(s);
+    release(k_empty);
+    softmax_tile(s, m, l, alpha, 0, N, t, scale, scale_log2);
+    pack_p(pa, s);
+
+    for (int j = 1; j < tiles; ++j) {
+      const int st = j % kStages, pv = (j - 1) % kStages;
+      svt::mbar_wait(k_full + st, (j / kStages) & 1);
+      turn_wait(c);
+      svt::wgmma_fence();
+      issue_scores(s, q_mine, Ks + st * kKeys * kD);
+      svt::wgmma_commit();
+      svt::mbar_wait(v_full + pv, ((j - 1) / kStages) & 1);
+      svt::wgmma_fence();
+      issue_pv(acc, pa, Vs + pv * kKeys * kD);
+      svt::wgmma_commit();
+      turn_pass(c);
+
+      svt::wgmma_wait<1>();  // q k(j)^T done; p v(j - 1) still running
+      svt::fence_regs<64>(s);
+      release(k_empty + st);
+      softmax_tile(s, m, l, alpha, j * kKeys, N, t, scale, scale_log2);
+
+      svt::wgmma_wait<0>();  // p v(j - 1) done
+      svt::fence_regs<32>(acc);
+      hold_p(pa);
+      release(v_empty + pv);
+      // A factor of exactly 1 (no row's maximum moved) changes nothing.
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+      pack_p(pa, s);
+    }
+
+    const int pv = (tiles - 1) % kStages;
+    svt::mbar_wait(v_full + pv, ((tiles - 1) / kStages) & 1);
+    turn_wait(c);
+    svt::wgmma_fence();
+    issue_pv(acc, pa, Vs + pv * kKeys * kD);
+    svt::wgmma_commit();
+    if (c != kConsumers - 1) turn_pass(c);  // the last turn has no taker
+    svt::wgmma_wait<0>();
+    svt::fence_regs<32>(acc);
+    hold_p(pa);
+
+    // out = acc / l, rounded once to bf16; rows past N are not stored.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lr = l[h];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = q0 + 64 * c + 16 * warp + g + 8 * h;
+      if (row >= N) continue;
+      uint16_t* orow = out + ((size_t)batch * N + row) * kD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            svt::pack_bf16(acc[4 * j + 2 * h] / lr, acc[4 * j + 2 * h + 1] / lr);
+    }
+  }
+}
+
+// The TMA map of one [B, N, D] bf16 tensor: boxes of `rows` x D, 128-byte
+// swizzle, zeros outside.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int N, int D,
+                     int rows) {
+  const d512::EncodeTiled encode = d512::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                            const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int B, int N,
+           float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t e;
+  if ((e = make_map(&tq, q, B, N, kD, kRows)) != cudaSuccess ||
+      (e = make_map(&tk, k, B, N, kD, kKeys)) != cudaSuccess ||
+      (e = make_map(&tv, v, B, N, kD, kKeys)) != cudaSuccess)
+    return (int)e;
+  e = cudaFuncSetAttribute(flash_bf16_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + kRows - 1) / kRows, B);
+  flash_bf16_kernel<<<grid, kThreadsWS, kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<uint16_t*>(out), N, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace d64
+
 // ------------------------------------------------ f32: CUDA-core kernel
 
 constexpr int kFQ = 32;           // query rows of a block
@@ -674,25 +1021,28 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // q, k, v, out: [B, N, D] contiguous, 16-byte aligned. kernel, as
 // ops/attention.py::kernel_for chooses it: 0 = flash_f32_kernel (float32),
-// 1 = flash_bf16_kernel, 2 = flash_d512_kernel (bfloat16, D = 512 only).
-// Returns cudaGetLastError() of the launch.
+// 1 = flash_mma_kernel, 2 = flash_d512_kernel (bfloat16, D = 512 only),
+// 3 = d64::flash_bf16_kernel (bfloat16, D = 64 only). Returns
+// cudaGetLastError() of the launch.
 extern "C" int svt_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, int B, int N, int D, int kernel,
                                    float scale, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || D < 32 || D > 512 || D % 32 ||
-      (kernel == 2 && D != d512::kD))
+      (kernel == 2 && D != d512::kD) || (kernel == 3 && D != 64))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (kernel == 2) {
+  if (kernel == 3) {
+    return d64::launch(q, k, v, out, B, N, scale, s);
+  } else if (kernel == 2) {
     return d512::launch(q, k, v, out, B, N, scale, s);
   } else if (kernel == 1) {
     const size_t smem = bf16_smem_bytes(D);
-    e = cudaFuncSetAttribute(flash_bf16_kernel,
+    e = cudaFuncSetAttribute(flash_mma_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((N + kBQ - 1) / kBQ, B);
-    flash_bf16_kernel<<<grid, kThreads, smem, s>>>(
+    flash_mma_kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
         static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), N, D, scale);
   } else if (kernel == 0) {

@@ -1,7 +1,8 @@
 // Helpers shared by the bf16 tensor-core kernels (sm_90a): cp.async
 // copies into shared memory, ldmatrix fragment loads and the mma.sync
-// m16n8k16 bf16 product (fused_conv01); wgmma products, TMA loads and
-// mbarriers (flash_attention).
+// m16n8k16 bf16 product (fused_conv01); wgmma products, TMA loads,
+// mbarriers, register budgets of specialised warpgroups (setmaxnreg) and
+// the MUFU exponential (flash_attention).
 //
 // Fragment layouts are those of mma.m16n8k16 (PTX ISA), lane = 4 g + t:
 // A (16x16, row-major) holds rows g, g+8 and columns 2t, 2t+1, 2t+8, 2t+9
@@ -198,7 +199,65 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float* d,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64n128, f32) = a (m64k16, K-major in shared memory) * b (k16n128,
+// K-major in shared memory), plus d where `accumulate` is non-zero.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da,
+                                                    uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SVT_F16(0), SVT_F16(16), SVT_F16(32), SVT_F16(48)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64, f32) += a (m64k16, bf16 in registers) * b (k16n64, MN-major
+// in shared memory: the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d,
+                                                      const uint32_t* a,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SVT_F16(0), SVT_F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef SVT_F16
 #undef SVT_F4
+
+// ------------------------------------------- warp specialisation helpers
+
+// Lower (producer) or raise (consumer) this warpgroup's register budget;
+// every warp of the group executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// One arrival on `bar` (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// 2^x on the MUFU unit (ex2.approx, subnormal results flushed to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 }  // namespace svt

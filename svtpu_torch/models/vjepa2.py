@@ -23,8 +23,8 @@ Rounding: products in the compute dtype with float32 parameters (as
 float32, the residual stream in float32 (the branches' outputs are added
 to it as they are), the features cast once to the compute dtype after the
 final norm. Attention runs through ``ops/attention.flash_attention``: the
-hand-written kernel on the card (``flash_bf16_kernel`` at D = 64), its
-plain version on the CPU.
+hand-written kernel on the card (``d64::flash_bf16_kernel``, the
+warp-specialised wgmma kernel for D = 64), its plain version on the CPU.
 """
 from __future__ import annotations
 

@@ -30,7 +30,7 @@ from svtpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # The kernels of csrc/flash_attention.cu, by the launcher's index.
-KERNELS = {"f32": 0, "bf16": 1, "bf16_d512": 2}
+KERNELS = {"f32": 0, "bf16": 1, "bf16_d512": 2, "bf16_d64": 3}
 _SIGNATURES = {"svt_flash_attention": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
     ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])}
 MAX_D = 512
@@ -87,12 +87,13 @@ def _check(q, k, v) -> None:
 
 def kernel_for(dtype: torch.dtype, D: int) -> str:
     """The kernel of ``csrc/flash_attention.cu`` that runs these inputs:
-    ``bf16_d512``, the wgmma kernel for the SD model's width; ``bf16``, the
-    first tensor-core kernel, for every other D; ``f32``, the CUDA-core
-    kernel. The wrapper passes the choice to the launcher."""
+    ``bf16_d512``, the wgmma kernel for the SD model's width; ``bf16_d64``,
+    the warp-specialised wgmma kernel for V-JEPA 2's heads; ``bf16``, the
+    mma.sync kernel, for every other D; ``f32``, the CUDA-core kernel. The
+    wrapper passes the choice to the launcher."""
     if dtype == torch.float32:
         return "f32"
-    return "bf16_d512" if D == 512 else "bf16"
+    return {512: "bf16_d512", 64: "bf16_d64"}.get(D, "bf16")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -111,10 +112,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     fallback. Inference only: ``attention`` carries the gradient.
 
     Under a CUDA graph's capture (the SD first stage's encode and decode,
-    ``models/encode_graph.py``) the D = 512 kernel's TMA maps are encoded
-    on the host from ``q``, ``k`` and ``v``'s addresses, which then lie in
-    the graph's pool and stay fixed, and the maps travel in the captured
-    launch's parameters: every replay reads the tensors the capture made.
+    the clip encoder's, ``models/encode_graph.py``) the D = 512 and D = 64
+    kernels' TMA maps are encoded on the host from ``q``, ``k`` and ``v``'s
+    addresses, which then lie in the graph's pool and stay fixed, and the
+    maps travel in the captured launch's parameters: every replay reads the
+    tensors the capture made.
     """
     _check(q, k, v)
     if q.device.type == "cpu":

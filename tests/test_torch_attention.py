@@ -1,6 +1,9 @@
 """Parity: the port's attention (the plain version the wrapper takes on the
 CPU, and its backward) vs svtpu's ``blocked_attention``, ``flash_attention``
 in interpret mode and ``jax.grad`` of ``attention(use_pallas=False)``."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -9,7 +12,8 @@ import jax
 import jax.numpy as jnp
 
 from svtpu.ops import attention as jax_attn
-from svtpu_torch.ops.attention import (attention, blocked_attention,
+from portbench.tracing import kernel_label
+from svtpu_torch.ops.attention import (KERNELS, attention, blocked_attention,
                                        flash_attention, kernel_for)
 
 
@@ -91,15 +95,80 @@ def test_backward_matches_jax_grad(N):
 
 
 def test_kernel_dispatch_on_dtype_and_width():
-    """The launcher's dispatch: the D = 512 tensor-core kernel serves the
-    SD model's width, the first bf16 kernel every other width."""
+    """The launcher's dispatch: the D = 512 wgmma kernel serves the SD
+    model's width, the warp-specialised D = 64 kernel V-JEPA 2's heads, the
+    mma.sync kernel every other width."""
     assert kernel_for(torch.bfloat16, 512) == "bf16_d512"
-    for D in (32, 64, 96, 256, 480):
+    assert kernel_for(torch.bfloat16, 64) == "bf16_d64"
+    for D in (32, 96, 256, 480):
         assert kernel_for(torch.bfloat16, D) == "bf16"
     for D in (64, 512):
         assert kernel_for(torch.float32, D) == "f32"
-    assert set(flash_attention.launches_by_kernel) == {"bf16_d512", "bf16",
-                                                      "f32"}
+    assert set(flash_attention.launches_by_kernel) == {
+        "bf16_d512", "bf16_d64", "bf16", "f32"}
+    assert set(KERNELS) == set(flash_attention.launches_by_kernel)
+    assert sorted(KERNELS.values()) == list(range(len(KERNELS)))
+
+
+def _cuda_kernels(src: str) -> dict:
+    """Every ``__global__`` function of a CUDA source, by name: its
+    namespaces, whether it is a template, and the label a trace gives it
+    (``portbench.tracing.kernel_label`` of the name as the profiler
+    demangles it, namespaces dropped as the benchmark's readers drop
+    them)."""
+    raw = src.splitlines()
+    lines = [line.split("//")[0] for line in raw]
+    out, spaces = {}, []
+    for i, line in enumerate(lines):
+        opened = re.match(r"namespace\s*(\w*)\s*\{", line)
+        if opened:
+            spaces.append(opened.group(1) or "(anonymous namespace)")
+        elif re.match(r"}\s*//\s*namespace", raw[i]):
+            spaces.pop()
+        if "__global__" in line:
+            head = " ".join(lines[i:i + 3])
+            name = re.search(r"__global__\s+void\s+(?:__launch_bounds__"
+                             r"\([^)]*\)\s*)?(\w+)\s*\(", head).group(1)
+            template = lines[i - 1].strip().startswith("template")
+            full = ("void " + "::".join(spaces + [name])
+                    + ("<64>" if template else "") + "(int)")
+            out[name] = dict(spaces=list(spaces), template=template,
+                             label=kernel_label(full).rsplit("::", 1)[-1])
+    return out
+
+
+def _launched(src: str, route: str) -> str:
+    """The ``__global__`` function that the launcher's branch for
+    ``KERNELS[route]`` launches, through the namespace's ``launch``."""
+    branch = re.search(r"kernel == %d\)\s*\{\s*return (\w+)::launch\("
+                       % KERNELS[route], src)
+    ns = branch.group(1)
+    body = src[src.index(f"namespace {ns} {{"):
+               src.index(f"}}  // namespace {ns}")]
+    body = body[body.index("\nint launch("):]
+    return re.search(r"(\w+)(?:<\w+>)?<<<", body).group(1)
+
+
+def test_trace_label_of_the_d64_kernel_is_its_own():
+    """The benchmark's readers of the clip cell (``roofline_pct.flash_d64``,
+    ``attention_pct.vjepa2``) count the trace label ``flash_bf16_kernel``:
+    the kernel launched for ``bf16_d64`` is the only ``__global__`` of
+    ``csrc/flash_attention.cu`` with that label, and the D = 512 kernel
+    keeps its name, ``flash_d512_kernel``, and its route."""
+    src = (Path(__file__).resolve().parent.parent / "svtpu_torch" / "csrc"
+           / "flash_attention.cu").read_text()
+    kernels = _cuda_kernels(src)
+    assert {"flash_d512_kernel", "flash_bf16_kernel", "flash_mma_kernel",
+            "flash_f32_kernel"} <= set(kernels)
+    labelled = [n for n, k in kernels.items()
+                if k["label"] == "flash_bf16_kernel"]
+    assert labelled == ["flash_bf16_kernel"]
+    d64 = kernels["flash_bf16_kernel"]
+    assert d64["spaces"][-1] == "d64"
+    assert _launched(src, "bf16_d64") == "flash_bf16_kernel"
+    assert kernels["flash_d512_kernel"]["spaces"][-1] == "d512"
+    assert kernels["flash_d512_kernel"]["label"] == "flash_d512_kernel"
+    assert _launched(src, "bf16_d512") == "flash_d512_kernel"
 
 
 def test_wrapper_at_the_sd_width_matches_jax_flash_interpret_bf16():

@@ -329,7 +329,7 @@ def test_run_frames_chunked_copy_equals_one_chunk_bit_for_bit(
 @pytest.mark.cuda
 def test_flash_attention_at_the_vit_shape():
     """``flash_attention`` at V-JEPA 2's ``[clips * heads, tokens,
-    head_dim]`` = ``[32, 8192, 64]`` in bf16 (``flash_bf16_kernel``)
+    head_dim]`` = ``[32, 8192, 64]`` in bf16 (``d64::flash_bf16_kernel``)
     against ``blocked_attention`` in f32 with TF32 off: within two bf16
     steps at the output's scale (p is rounded to bf16 in the kernel, not
     in the plain version), scores spread wide (std 3)."""
@@ -342,12 +342,80 @@ def test_flash_attention_at_the_vit_shape():
     q, k, v = (torch.randn((32, 8192, 64), generator=gen, device="cuda")
                for _ in range(3))
     q, k, v = (3 * q).bfloat16(), k.bfloat16(), v.bfloat16()
-    assert kernel_for(torch.bfloat16, 64) == "bf16"
-    before = flash_attention.launches_by_kernel["bf16"]
+    assert kernel_for(torch.bfloat16, 64) == "bf16_d64"
+    before = dict(flash_attention.launches_by_kernel)
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert flash_attention.launches_by_kernel["bf16"] == before + 1
+    after = flash_attention.launches_by_kernel
+    assert after["bf16_d64"] == before["bf16_d64"] + 1
+    assert after["bf16"] == before["bf16"]
     want = blocked_attention(q, k, v).float()
+    step = 2.0 ** -7 * float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= 2 * step
+
+
+def _d64_inputs(B, N, seed, spread=1.0, dominant=False):
+    """bf16 q, k, v [B, N, 64] on the card; ``spread`` is the scores'
+    variance, ``dominant`` gives each query one key whose score stands
+    ~``4 sqrt(D)`` above the rest (a wrong running-max rescale shows)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, N, 64, generator=g) for _ in range(3))
+    q, k = q * spread ** 0.5, k * spread ** 0.5
+    if dominant:
+        perm = torch.randperm(N, generator=g)
+        k[:, perm] = 4.0 * q / q.norm(dim=-1, keepdim=True) * 8.0 \
+            + 0.1 * k[:, perm]
+    return [t.cuda().bfloat16() for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged 1000", "ragged 8191",
+                                  "dominant key", "spread 8", "B = 1",
+                                  "graph replay"])
+def test_flash_attention_d64_cases(case):
+    """The D = 64 kernel against ``blocked_attention`` (f32, TF32 off),
+    within two bf16 steps at the output's scale: N ragged against its
+    192-row blocks and 128-key tiles, one dominant key a row, scores spread
+    wide (std 8), a single slice; and two launches captured in one CUDA
+    graph, whose replay equals eager launches on the same inputs bit for
+    bit (the TMA maps travel in the captured parameters)."""
+    from svtpu_torch.ops.attention import blocked_attention, flash_attention
+
+    _require_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, N, kw = {"ragged 1000": (3, 1000, dict(spread=8.0)),
+                "ragged 8191": (2, 8191, {}),
+                "dominant key": (2, 4000, dict(dominant=True)),
+                "spread 8": (4, 2048, dict(spread=8.0)),
+                "B = 1": (1, 1536, {}),
+                "graph replay": (4, 3000, dict(spread=4.0))}[case]
+    qkv = _d64_inputs(B, N, seed=len(case) + N, **kw)
+    before = flash_attention.launches_by_kernel["bf16_d64"]
+    if case == "graph replay":
+        other = [t.flip(1).contiguous() for t in qkv]
+        eager = [flash_attention(*qkv), flash_attention(*other)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            flash_attention(*qkv)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [flash_attention(*qkv), flash_attention(*other)]
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_kernel["bf16_d64"] - before == 5
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+        got = outs[0]
+    else:
+        got = flash_attention(*qkv)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_kernel["bf16_d64"] == before + 1
+    want = blocked_attention(*qkv).float()
+    assert got.shape == (B, N, 64) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
     step = 2.0 ** -7 * float(want.abs().max())
     assert float((got.float() - want).abs().max()) <= 2 * step
 
@@ -374,7 +442,8 @@ def test_clip_encoder_graph_equals_eager_bit_for_bit(clip_requests):
     ``ClipEncoder.encode_frames``, three requests on the graph route (the
     first eager, the second captured, then a replay) and on the eager
     route: equal features request for request, one capture, a
-    ``flash_bf16_kernel`` launch a layer and request; then ``run_frames``
+    ``d64::flash_bf16_kernel`` launch a layer and request (none of the
+    mma.sync kernel); then ``run_frames``
     of a percep RBVAE over the features on both routes: equal codes, a
     tubelet's code on both of its frames."""
     from svtpu_torch.config import VJEPA2Config
@@ -393,10 +462,11 @@ def test_clip_encoder_graph_equals_eager_bit_for_bit(clip_requests):
     eager._graphed = False
     captures = EncodeGraph.captures
     for frames in clip_requests:
-        before = flash_attention.launches_by_kernel["bf16"]
+        before = dict(flash_attention.launches_by_kernel)
         got = graphed.encode_frames(frames).clone()
-        assert flash_attention.launches_by_kernel["bf16"] - before \
-            == cfg.num_hidden_layers
+        after = flash_attention.launches_by_kernel
+        assert after["bf16_d64"] - before["bf16_d64"] == cfg.num_hidden_layers
+        assert after["bf16"] == before["bf16"]
         want = eager.encode_frames(frames)
         assert got.shape == (64, 16, 16, 1024) and got.dtype == torch.bfloat16
         assert torch.equal(got, want)

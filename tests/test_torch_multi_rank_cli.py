@@ -322,7 +322,7 @@ def test_each_rank_writes_its_launches(two_ranks):
             ["fused_conv01", "lstm_binary_concrete", "binary_concrete_fused",
              "flash_attention"], 0)
         assert got["flash_attention_by_kernel"] == dict.fromkeys(
-            ["bf16_d512", "bf16", "f32"], 0)
+            ["bf16_d512", "bf16_d64", "bf16", "f32"], 0)
 
 
 def test_wandb_sweep_reports_from_rank0(two_ranks):
