@@ -36,12 +36,12 @@ on and their launches counted:
     second captured, then replays) held bit for bit against the eager
     route (``_graphed = False``): the pixel ``run_frames`` (the flagship at
     batch 512 with both kernels, the simple variant, latent 75; noisy and
-    noise off), the percep ``run_frames``, the SD first stage's stochastic
-    latents and ``decode_latents``, ``RBVAEBundle.encode`` with noise at
+    noise off), the percep ``run_frames`` (its RBVAE encode; the SD first
+    stage runs eagerly), ``RBVAEBundle.encode`` with noise at
     two temperatures, and the trainer's probes over three epochs of
     annealed temperature on the bank and the host route; each key captured
     once, the launch counts of both routes equal, the kernels of traced
-    pixel and SD encode replays equal to the launches their captures
+    pixel encode replays equal to the launches their captures
     counted, one replay of each kind under sync-debug "error", both routes
     timed, each key's capture seconds and pool bytes printed, and an
     encode that reads the card on the host failing its capture in a
@@ -59,10 +59,8 @@ on and their launches counted:
     for bit (parameters, Adam state, metric sums; bf16, f32, remat; across
     an anneal update, a raised temperature floor and a restart); a step
     that reads the card on the host failing its capture; one epoch of the
-    ``percep-flagship`` preset on seeded SD-shaped latents; and the train
-    step's time on both routes, the capture's seconds, a trace of each
-    route (the card's busy share), the eager step's forward/backward/Adam
-    split, peak memory, FLOP count and bound;
+    ``percep-flagship`` preset on seeded SD-shaped latents; and the train's
+    wall times (the benchmark's ``flagship-train`` cell times the step);
   * the evaluation path: the flagship read back through
     ``RBVAEBundle.from_checkpoint`` and evaluated by
     ``evaluate_consistency``, ``evaluate_hamming``,
@@ -755,73 +753,8 @@ def phase_main_path(card: str) -> dict:
     print(f"time: model.encode on the card (f32 frames on the card), batch "
           f"{BATCH}: {ms:.3f} ms, {BATCH / ms * 1e3:.1f} frames/s, spread "
           f"{spread:.3f} [{card}]")
-    phase_breakdown(card, pipe, frames, xd)
     return {"launches": launches, "per_encode": {
         k: n / len(frames) for k, n in launches.items()}}
-
-
-def phase_breakdown(card: str, pipe, frames: dict, xd) -> None:
-    """Where one batch's time goes: each stage of run_frames alone, on the
-    input the main path gives it, timed with CUDA events. The encoder LSTM
-    and the sampler are timed both as the fused kernel the path runs and as
-    the two stages it replaced."""
-    from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
-    from svtpu_torch.ops.conv_trunk_cuda import fused_conv01, kernel_weights
-    from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
-    from svtpu_torch.pipeline import preprocess
-
-    m, dt = pipe.model, pipe.cfg.torch_dtype
-    enc = m.encoder_cnn
-    c0, c1, c2 = enc.convs()
-    with torch.inference_mode():
-        u8 = {k: torch.from_numpy(v) for k, v in frames.items()}
-        u8_dev = u8["432x768"].cuda()
-        xb = xd[:, 0].to(dt)
-        h01 = fused_conv01(xb, c0.weight, c0.bias, c1.weight, c1.bias)
-        h2 = c2(h01.permute(0, 3, 1, 2), dt)
-        logits = enc.fc(h2.reshape(BATCH, -1), dt)[:, None]
-        h_seq = m.encoder_rnn(logits)
-        seed = torch.tensor([5], device="cuda")
-        stages = {
-            "copy 256x256 uint8 frames to the card":
-                lambda: u8["256x256"].cuda(),
-            "preprocess (to [0, 1], resize) 432x768 -> 256x256":
-                lambda: preprocess(u8_dev, (256, 256)),
-            "cast frames to bf16": lambda: xd[:, 0].to(dt),
-            "fused_conv01 kernel (its wrapper, packing included)":
-                lambda: fused_conv01(xb, c0.weight, c0.bias, c1.weight,
-                                     c1.bias),
-            "  of which packing the weights (kernel_weights)":
-                lambda: kernel_weights(dt, c0.weight, c0.bias, c1.weight,
-                                       c1.bias),
-            "conv2 (cuDNN)": lambda: c2(h01.permute(0, 3, 1, 2), dt),
-            "fc 65536 -> 25": lambda: enc.fc(h2.reshape(BATCH, -1), dt),
-            "encoder LSTM + sampler (fused kernel)":
-                lambda: lstm_binary_concrete(m.encoder_rnn, logits, seed,
-                                             TEMPERATURE, 0.1),
-            "  replaced: encoder LSTM, 2 layers (plain)":
-                lambda: m.encoder_rnn(logits),
-            "  replaced: binary_concrete kernel": lambda: binary_concrete_fused(
-                h_seq, seed, TEMPERATURE, 0.1),
-        }
-        for name, fn in stages.items():
-            ms, spread = cuda_ms(fn, iters=5)
-            print(f"time: stage {name}, batch {BATCH}: {ms:.4f} ms, spread "
-                  f"{spread:.3f} [{card}]")
-        # Timed back to back, a stage of small launches reads the host's
-        # pace; inside the encode the host runs ahead of the card. So the
-        # LSTM stages also get their device time: 50 calls in a CUDA graph.
-        device = {
-            "encoder LSTM + sampler (fused kernel)":
-                stages["encoder LSTM + sampler (fused kernel)"],
-            "  replaced: encoder LSTM, 2 layers (plain) + binary_concrete "
-            "kernel": lambda: binary_concrete_fused(
-                m.encoder_rnn(logits), seed, TEMPERATURE, 0.1)}
-        for name, fn in device.items():
-            ms, spread = graph_ms(fn)
-            print(f"time: stage {name}, batch {BATCH}, device time (CUDA "
-                  f"graph of 50 calls): {ms:.4f} ms, spread {spread:.3f} "
-                  f"[{card}]")
 
 
 def phase_simple_path(card: str) -> dict:
@@ -1049,10 +982,9 @@ def phase_percep_path(card: str) -> dict:
         det = {k: percep_pipeline(weights, k, dtype, deterministic=True)
                for k in (True, False)}
         for p in det.values():
-            # Eager: each SD graph's pool holds an encode's working set
-            # (PERF.md §5); phase_encode_graphs holds the graph route
-            # against this one.
-            set_route(p, False)
+            # Eager: phase_encode_graphs holds the graph route against
+            # this one.
+            p._graphed = False
         lat = {k: p.percep.encode_frames(sd_frames[:n]) for k, p in
                det.items()}
         rel[dtype] = float(np.abs(lat[True] - lat[False]).max()
@@ -1094,7 +1026,6 @@ def phase_percep_path(card: str) -> dict:
           f"1280x704 host frames in, latents out: {med_enc:.3f} ms per batch "
           f"median of 5, spread {(max(enc_ms) - min(enc_ms)) / med_enc:.3f} "
           f"[{card}]")
-    phase_percep_breakdown(card, pipe, frames, batch)
     return {"launches": launches, "fps": med, "encode_ms": med_enc,
             "weights": weights}
 
@@ -1180,90 +1111,6 @@ def phase_clip_path(card: str) -> dict:
     return {"launches": counts, "requests": requests, "fps": med}
 
 
-def phase_percep_breakdown(card: str, pipe, frames, batch) -> None:
-    """Where one SD batch's time goes: each stage of encode_frames and the
-    RBVAE encode alone, on the input the path gives it, CUDA events; the
-    host resize on the host clock."""
-    from svtpu_torch.models.autoencoder_kl import DiagonalGaussian
-    from svtpu_torch.ops.attention import flash_attention
-    from svtpu_torch.ops.image import resize_u8
-
-    host = torch.from_numpy(frames)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        resize_u8(host, (704, 1280))
-    print(f"time: stage host resize {PERCEP_FRAMES} uint8 720x1280 -> "
-          f"1280x704 (CPU): {(time.perf_counter() - t0) / 3 * 1e3:.3f} ms "
-          f"[{card}]")
-    model = pipe.percep.model
-    enc, dt = model.encoder, model.cfg.torch_dtype
-    u8 = torch.from_numpy(batch)
-    stages = {}
-    with torch.inference_mode():
-        x = u8.cuda().float() * (2.0 / 255.0) - 1.0
-        stages[f"copy {PERCEP_BATCH} uint8 1280x704 frames to the card"] = \
-            lambda: u8.cuda()
-        h = x.permute(0, 3, 1, 2)
-        stages["encoder conv_in"] = (lambda a: enc.conv_in(a, dt), h)
-        h = enc.conv_in(h, dt)
-
-        def level(lv):
-            def run(a):
-                for block in lv.block:
-                    a = block(a, dt)
-                return lv.downsample(a, dt) if hasattr(lv, "downsample") \
-                    else a
-            return run
-        for i, lv in enumerate(enc.down):
-            fn = level(lv)
-            stages[f"encoder level {i} ({tuple(h.shape[1:])})"] = (fn, h)
-            if i == 0:
-                block = lv.block[0]
-                stages["  of which one GroupNorm+SiLU (f32, then bf16)"] = (
-                    lambda a: block.norm1(a, dt), h)
-                stages["  of which one conv 128->128 k3 (cuDNN)"] = (
-                    lambda a: block.conv1(a, dt), block.norm1(h, dt))
-            h = fn(h)
-        mid = enc.mid
-        stages["encoder mid.block_1"] = (lambda a: mid.block_1(a, dt), h)
-        h = mid.block_1(h, dt)
-        stages["encoder mid.attn_1 (norm, q/k/v, kernel, proj_out)"] = (
-            lambda a: mid.attn_1(a, dt), h)
-        qkv = [m(mid.attn_1.norm(h, dt), dt).flatten(2).transpose(1, 2)
-               .contiguous() for m in (mid.attn_1.q, mid.attn_1.k,
-                                       mid.attn_1.v)]
-        stages["  of which the flash_attention kernel"] = (
-            lambda a: flash_attention(*a), qkv)
-        h = mid.attn_1(h, dt)
-        stages["encoder mid.block_2"] = (lambda a: mid.block_2(a, dt), h)
-        h = mid.block_2(h, dt)
-        stages["encoder norm_out + conv_out"] = (
-            lambda a: enc.conv_out(enc.norm_out(a, dt), dt), h)
-        h = enc.conv_out(enc.norm_out(h, dt), dt)
-        stages["quant_conv + posterior mode + scale"] = (
-            lambda a: model.cfg.scale_factor * DiagonalGaussian.from_moments(
-                model.quant_conv(a, dt).permute(0, 2, 3, 1)).mode(), h)
-        lat = torch.randn(PERCEP_FRAMES, 1, 88, 160, 4, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        stages[f"percep RBVAE encode ({PERCEP_FRAMES} frames)"] = (
-            lambda a: pipe.model.encode(a, TEMPERATURE, True, 0.1,
-                                        generator=gen), lat)
-        for name, st in stages.items():
-            fn, arg = (st, None) if callable(st) else st
-            call = fn if arg is None else (lambda f=fn, a=arg: f(a))
-            ms, spread = cuda_ms(call, warmup=2, trials=3, iters=2)
-            print(f"time: stage {name}, batch {PERCEP_BATCH}: {ms:.4f} ms, "
-                  f"spread {spread:.3f} [{card}]")
-
-
-def set_route(owner, graphed: bool) -> None:
-    """Put an owner of graphed encodes, and its perceptual encoder where it
-    has one, on the graph route or on the eager one (the reference)."""
-    owner._graphed = graphed
-    if getattr(owner, "percep", None) is not None:
-        owner.percep._graphed = graphed
-
-
 def graph_keys(owner) -> list:
     """Each key of the encode graphs of ``owner`` and of its perceptual
     encoder: its tag, inputs, eager calls, captures, replays, the capture's
@@ -1302,7 +1149,7 @@ def encode_routes(name: str, make, run, calls: list, keys: int,
     out = {}
     for graphed in (False, True):       # the reference's memory goes first
         owner = make()
-        set_route(owner, graphed)
+        owner._graphed = graphed
         torch.cuda.synchronize()
         before = launches.read()
         t0 = time.perf_counter()
@@ -1409,16 +1256,16 @@ def route_times(owner, fn, n: int = 6) -> dict:
     and its capture)."""
     times = {True: [], False: []}
     for graphed in (True, False):
-        set_route(owner, graphed)
+        owner._graphed = graphed
         fn()
         fn()
     for i in range(n):
         for graphed in ((True, False) if i % 2 == 0 else (False, True)):
-            set_route(owner, graphed)
+            owner._graphed = graphed
             t0 = time.perf_counter()
             fn()
             times[graphed].append(time.perf_counter() - t0)
-    set_route(owner, True)
+    owner._graphed = True
     return {"graph": statistics.median(times[True]),
             "eager": statistics.median(times[False])}
 
@@ -1429,12 +1276,12 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
     (``encode_routes``): the pixel ``run_frames`` (the flagship at batch 512
     with both kernels, also at 432x768 through the resize; the simple
     variant; latent 75), noisy and noise off; the percep ``run_frames``
-    (codes and the SD first stage's stochastic latents) and
-    ``decode_latents``; ``RBVAEBundle.encode`` with noise at two
+    (the percep RBVAE's graph; the SD first stage runs eagerly on both
+    routes); ``RBVAEBundle.encode`` with noise at two
     temperatures and without; the trainer's probes across three epochs of
     annealed temperature with the weights updated in place between them,
     on the bank route and the host route. One replay of each kind under
-    sync-debug "error"; 5 pixel and 2 SD encode replays traced, their
+    sync-debug "error"; 5 pixel encode replays traced, their
     kernels held against the launches counted for them
     (``traced_replays``); each path timed on both routes; a capture that
     fails, in a process of its own."""
@@ -1520,12 +1367,11 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
             "pixel: the replay under sync debug differs")
     pipe.drop_graphs()
 
-    # The perceptual path: codes, the SD first stage's latents, decode.
+    # The perceptual path: the percep RBVAE's graph, on the SD first
+    # stage's latents (eager on both routes).
     frames = np.random.default_rng(7).integers(
         0, 256, (PERCEP_FRAMES, 720, 1280, 3), np.uint8)
     sd_frames = resize_u8(torch.from_numpy(frames), (704, 1280)).numpy()
-    z8 = np.random.default_rng(8).normal(
-        size=(PERCEP_BATCH, 88, 160, 4)).astype(np.float32)
 
     def percep_run(p, call):
         if call == "latents":
@@ -1536,52 +1382,23 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
         f"percep run_frames ({PERCEP_FRAMES} frames 720x1280, SD batch "
         f"{PERCEP_BATCH}, stochastic, noisy codes) x2, then the SD latents "
         f"of {PERCEP_FRAMES} frames", lambda: percep_pipeline(weights, True),
-        percep_run, [0, 1, "latents"], 2, card)
-    enc = ppipe.percep
-    lat = replay_quietly(enc.encode_graphs(), "sd encode", enc.model, (),
-                         enc._encode_body,
-                         (torch.from_numpy(sd_frames[:PERCEP_BATCH]).cuda(),),
-                         seed=batch_seed(enc.seed, 0))
-    latents = enc.encode_frames(sd_frames)
+        percep_run, [0, 1, "latents"], 1, card)
+    latents = ppipe.percep.encode_frames(sd_frames)
     codes = replay_quietly(ppipe.encode_graphs(), "run_frames", ppipe.model,
                            (ppipe.hard, ppipe.noise), ppipe._codes,
                            (torch.from_numpy(latents).cuda(),),
                            ppipe.temperature, ppipe.noise_ratio,
                            batch_seed(ppipe.seed, 0))
-    require(np.array_equal(lat.cpu().numpy(), latents[:PERCEP_BATCH])
-            and np.array_equal(codes.cpu().numpy(),
-                               ppipe.run_frames(frames, 0)),
-            "percep: a replay under sync debug differs")
-    traced_replays(enc.encode_graphs(), "sd encode",
-                   [PERCEP_BATCH, 704, 1280, 3],
-                   lambda: enc.encode_frames(sd_frames[:PERCEP_BATCH]), 2,
-                   "the SD encode's replays", card)
+    require(np.array_equal(codes.cpu().numpy(), ppipe.run_frames(frames, 0)),
+            "percep: the replay under sync debug differs")
     t = route_times(ppipe, lambda: ppipe.run_frames(frames, 0))
-    t_enc = route_times(enc, lambda: enc.encode_frames(
-        sd_frames[:PERCEP_BATCH]))
     ppipe.drop_graphs()
-    enc.drop_graphs()
-    torch.cuda.empty_cache()
-    dec = encode_routes(
-        f"SD decode_latents of {PERCEP_BATCH} latents x2",
-        lambda: percep_pipeline(weights, True).percep,
-        lambda e, _: e.decode_latents(z8), [0, 1], 1, card)
-    pix = replay_quietly(dec.encode_graphs(), "sd decode", dec.model, (),
-                         dec._decode_body, (torch.from_numpy(z8).cuda(),))
-    require(np.array_equal(pix.cpu().numpy(), dec.decode_latents(z8)),
-            "SD decode: a replay under sync debug differs")
-    t_dec = route_times(dec, lambda: dec.decode_latents(z8), n=4)
-    dec.drop_graphs()
-    del dec, ppipe, enc
+    del ppipe
     torch.cuda.empty_cache()
     print(f"time: percep run_frames ({PERCEP_FRAMES} uint8 720x1280 host "
           f"frames in, codes out): graph route "
           f"{PERCEP_FRAMES / t['graph']:.2f} frames/s, eager "
-          f"{PERCEP_FRAMES / t['eager']:.2f}; SD encode_frames of "
-          f"{PERCEP_BATCH}: graph {t_enc['graph'] * 1e3:.3f} ms, eager "
-          f"{t_enc['eager'] * 1e3:.3f} ms; decode_latents of "
-          f"{PERCEP_BATCH}: graph {t_dec['graph'] * 1e3:.3f} ms, eager "
-          f"{t_dec['eager'] * 1e3:.3f} ms [{card}]")
+          f"{PERCEP_FRAMES / t['eager']:.2f} [{card}]")
 
     # Evaluation: the bundle's chunks, with noise at two temperatures and
     # without.
@@ -1656,8 +1473,8 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
     launches = read_counts(counters)
     captures = EncodeGraph.captures - captures0
     print(f"check replays under torch.cuda.set_sync_debug_mode('error'): "
-          f"pixel run_frames, the SD encode and decode, the percep RBVAE "
-          f"encode, an evaluation chunk and a bank-route probe chunk each "
+          f"pixel run_frames, the percep RBVAE encode, an evaluation "
+          f"chunk and a bank-route probe chunk each "
           f"replayed and raised nothing, equal to the same calls from the "
           f"host; the phase captured {captures} graphs, launched {launches} "
           f"[{card}]")
@@ -1851,25 +1668,6 @@ def video_frames(meta, states, hw=(256, 256), seed=11) -> np.ndarray:
     base = rng.integers(0, 216, (meta.num_states, 1, 1, 3), np.uint8)
     return base[states] + rng.integers(0, 40, (len(states),) + tuple(hw)
                                        + (3,), np.uint8)
-
-
-def train_step_flops(cfg, frames: int) -> float:
-    """FLOPs of one flagship train step, from the layer shapes: ``frames``
-    through the encoder and the decoder, the same frames through the
-    encoder once more (the context-free pass), the backward twice the
-    forward. Counts the convs, fc layers and LSTM matmuls."""
-    k2, (h, w) = cfg.conv_kernel ** 2, cfg.input_hw
-    chans = (cfg.in_channels,) + tuple(cfg.conv_features)
-    enc = 0
-    for i in range(len(cfg.conv_features)):        # output positions x taps
-        h, w = (h + 1) // 2, (w + 1) // 2
-        enc += h * w * chans[i + 1] * chans[i] * k2
-    dec = enc                                      # mirrored transposed convs
-    fc = cfg.encoded_dim * cfg.latent_dim
-    L = cfg.latent_dim
-    lstm = cfg.lstm_layers * 4 * L * 2 * L
-    fwd_macs = frames * (2 * (enc + fc + lstm) + dec + fc + lstm)
-    return 3 * 2 * fwd_macs
 
 
 def card_cpu_step(mcfg, tcfg, batch: np.ndarray, seed: int,
@@ -2122,7 +1920,7 @@ def phase_train_path(card: str) -> dict:
           f"{statistics.median(step_s):.4f} s median of 3 "
           f"{[round(t, 4) for t in step_s]} [{card}]")
 
-    # Probe time, and the train step: CUDA events, medians.
+    # Probe time.
     probe_s = []
     for seed in range(3):
         torch.cuda.synchronize()
@@ -2133,7 +1931,6 @@ def phase_train_path(card: str) -> dict:
     print(f"time: probes (state_consistency + state_separation, {n_val} val "
           f"frames in {chunks} chunk(s) of 128 through both kernels): "
           f"{statistics.median(probe_s):.4f} s median of 3 [{card}]")
-    phase_train_breakdown(card, tr, mcfg, B * 2 * S)
 
     # Check 6b: the pieces the step graph rests on. A replay picks up the
     # seeds set before it; the trainer's Adam (capturable) is optax's.
@@ -2254,76 +2051,6 @@ def phase_train_path(card: str) -> dict:
     print(f"train path: all checks passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "percep_launches": p_launches}
-
-
-def phase_train_breakdown(card: str, tr, mcfg, frames: int) -> None:
-    """One flagship step's time on both routes (CUDA events, fresh states:
-    a replay of the step's graph and the eager step), the capture's
-    seconds, the eager step's forward (the objective), backward and Adam
-    parts, peak memory, a trace of 5 steps of each route (the card's busy
-    share); the step's FLOPs and its bound at the bf16 peak."""
-    from svtpu_torch import batch_seed
-    from svtpu_torch.training.schedules import temperature_schedule
-    from svtpu_torch.training.trainer import Noise, pair_objective
-
-    cfg = tr.cfg
-    torch.cuda.reset_peak_memory_stats()
-    graph_ms, gstate = flagship_step_ms(tr, graphed=True)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    capture_s = gstate.graph.capture_s
-    gtrace = trace_steps(tr, gstate)
-    del gstate
-    step_ms, state = flagship_step_ms(tr, graphed=False)
-    etrace = trace_steps(tr, state)
-    idx = tr._upload_epoch(0)
-    n = len(idx)
-    parts = []
-    for i in range(10):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        state.step += 1
-        temp = max(temperature_schedule(
-            state.step, cfg.init_temperature, cfg.final_temperature,
-            cfg.anneal_rate, cfg.num_steps_to_update), tr._temp_floor)
-        noise = Noise(batch_seed(tr._base_seed, state.step), tr.device)
-        state.optimizer.zero_grad(set_to_none=True)
-        ev[0].record()
-        total, _ = pair_objective(state.model, cfg, tr._batch(idx[i % n]),
-                                  temp, False, noise, deterministic=False)
-        ev[1].record()
-        total.backward()
-        ev[2].record()
-        state.optimizer.step()
-        ev[3].record()
-        parts.append(ev)
-    torch.cuda.synchronize()
-    tr._graphed = True
-    fwd, bwd, adam = (statistics.median(e[j].elapsed_time(e[j + 1])
-                                        for e in parts[2:]) for j in range(3))
-    flops = train_step_flops(mcfg, frames)
-    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
-    print(f"time: train step (flagship, batch [{frames // 10},2,5,256,256,3], "
-          f"bf16, CUDA events, median of 10 after 2): graph route (a replay) "
-          f"{graph_ms:.3f} ms, {frames / graph_ms * 1e3:.1f} train frames/s; "
-          f"eager route {step_ms:.3f} ms, {frames / step_ms * 1e3:.1f} train "
-          f"frames/s; the graph {graph_ms / step_ms:.3f}x the eager step; "
-          f"capture {capture_s:.3f} s (host); the eager step's forward "
-          f"{fwd:.3f} ms, backward {bwd:.3f} ms, Adam (capturable) "
-          f"{adam:.3f} ms; peak memory (graph route) {peak:.2f} GiB; "
-          f"{flops / 1e12:.3f} TFLOP a step (forward + backward, from the "
-          f"layer shapes), bound {bound_ms:.3f} ms at 989 TFLOP/s, "
-          f"{bound_ms / graph_ms:.1%} of it (graph route), "
-          f"{flops / graph_ms / 1e9:.1f} TFLOP/s [{card}]")
-    for name, br in (("graph", gtrace), ("eager", etrace)):
-        print(f"trace: 5 flagship train steps, {name} route (batch "
-              f"{cfg.batch_size}, bf16): window {br['window_ms']:.3f} ms "
-              f"({br['window_ms'] / 5:.3f} ms a step), device busy "
-              f"{br['busy_ms']:.3f} ms = {br['busy_share']:.1%} of the "
-              f"window ({br['device_events']} device events, "
-              f"{br['kernel_ms_sum']:.3f} ms summed) [{card}]")
-        for name_, k, ms_ in br["top"][:5]:
-            print(f"  trace top op ({name} route): {ms_:.3f} ms "
-                  f"({ms_ / br['busy_ms']:.1%} of busy) in {k} calls: "
-                  f"{name_}")
 
 
 def chunks(n: int, chunk: int = 128) -> int:
@@ -4799,15 +4526,7 @@ def phase_multi_card(card: str) -> dict:
                     f"multi card: {kind}: the ranks' step graphs "
                     f"{rank_graphs[kind]}, expected {want_graphs(kind)} on "
                     f"each")
-                # An embed's 16 frames are two SD batches a rank: the first
-                # eager, the second captured and replayed (encode route).
                 rank_encodes[kind] = [r["encode_graphs"] for r in ranks]
-                require(not kind.startswith("embed") or all(
-                    g == {"captures": 1, "replays": 1}
-                    for g in rank_encodes[kind]),
-                    f"multi card: {kind}: the ranks' encode graphs "
-                    f"{rank_encodes[kind]}, expected one capture and one "
-                    f"replay on each")
                 for c in rank_launches[kind]:
                     total = add_counts(total, c)
         finally:
@@ -4861,8 +4580,7 @@ def phase_multi_card(card: str) -> dict:
               f"steps; the commands without a launcher none, on the eager "
               f"route); each rank's encode graphs (captures, replays): "
               f"{ {k: [(g['captures'], g['replays']) for g in v] for k, v in rank_encodes.items()} }"
-              f" (an embed: one capture and one replay on each rank) "
-              f"[{card}]")
+              f" [{card}]")
         errs, exact, finite, worst = {}, {}, True, {}
         for kind in train_kinds:
             got, _ = BestCheckpointer(run_dir / kind).restore("latest")

@@ -100,21 +100,17 @@ class _Key:
 class EncodeGraph:
     """An owner's encodes as CUDA graphs, one a key (see the module's
     docstring). ``captures`` and ``replays`` count, over the process, the
-    graphs captured and the calls replayed; ``report()`` gives each key's.
-    ``single``: hold one graph at a time, its key's, freeing every other
-    graph when a new key comes (an owner whose graphs' pools are too large
-    to hold side by side)."""
+    graphs captured and the calls replayed; ``report()`` gives each key's."""
 
     captures = 0
     replays = 0
 
-    def __init__(self, device, single: bool = False):
+    def __init__(self, device):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise EncodeCaptureError(
                 f"a CUDA graph of an encode needs a CUDA device, not "
                 f"{self.device}; on the CPU the encode runs eagerly")
-        self.single = single
         self.launches = cuda_graph.Launches()
         self._keys: dict = {}
 
@@ -140,8 +136,6 @@ class EncodeGraph:
             if k is not None and k.module() is not module:
                 k = None                    # the module it read is gone
             if k is None:
-                if self.single:
-                    self.drop()
                 self._forget_the_dead()
                 k = self._keys[key] = _Key(tag, module, inputs,
                                            temperature is not None,
@@ -229,12 +223,9 @@ class GraphedEncodes:
     ``cuda_graph.graph_route`` at construction; a check may set it to False
     after, as the eager reference on the card). Its ``EncodeGraph`` is made
     at the first graphed call, so that an owner forced onto the graph route
-    off the card raises ``EncodeCaptureError`` there. An owner whose class
-    sets ``_one_graph`` holds one graph at a time (``EncodeGraph``'s
-    ``single``)."""
+    off the card raises ``EncodeCaptureError`` there."""
 
     _graphed = False
-    _one_graph = False
     _encode_graphs: Optional[EncodeGraph] = None
 
     def encode_graphs(self) -> Optional[EncodeGraph]:
@@ -242,7 +233,7 @@ class GraphedEncodes:
         if not self._graphed:
             return None
         if self._encode_graphs is None:
-            self._encode_graphs = EncodeGraph(self.device, self._one_graph)
+            self._encode_graphs = EncodeGraph(self.device)
         return self._encode_graphs
 
     def run_encode(self, *args, **kwargs) -> torch.Tensor:

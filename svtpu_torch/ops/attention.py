@@ -111,10 +111,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     ragged tail is masked inside it), or an exception — there is no
     fallback. Inference only: ``attention`` carries the gradient.
 
-    Under a CUDA graph's capture (the SD first stage's encode and decode,
-    the clip encoder's, ``models/encode_graph.py``) the D = 512 and D = 64
-    kernels' TMA maps are encoded on the host from ``q``, ``k`` and ``v``'s
-    addresses, which then lie in the graph's pool and stay fixed, and the
+    Under a CUDA graph's capture (the clip encoder's encode,
+    ``models/encode_graph.py``) the D = 512 and D = 64 kernels' TMA maps
+    are encoded on the host from ``q``, ``k`` and ``v``'s addresses,
+    which then lie in the graph's pool and stay fixed, and the
     maps travel in the captured launch's parameters: every replay reads the
     tensors the capture made.
     """

@@ -91,6 +91,16 @@ class ClipEncoder(GraphedEncodes):
         self._norm = norm_constants(cfg, self.device)
         self._graphed = graph_route(self.device) == "graph"
 
+    @property
+    def host_hw(self) -> None:
+        """None: the frames are resized on the card."""
+        return None
+
+    @property
+    def frames_per_code(self) -> int:
+        """One feature grid a tubelet."""
+        return self.cfg.tubelet_size
+
     def _encode_body(self, inputs, _temperature, _noise_scale, _gen):
         """The device work of one batch of prepared clips: the encoder,
         its features one grid a tubelet."""

@@ -10,9 +10,9 @@ each rank encodes its rows of every batch, with the posterior noise of the
 whole batch drawn and sliced (``ops/draws.py``), and the latents are
 all-gathered: every rank returns what one process would. The encode pads
 every batch of frames to ``batch_size`` by repeating its last frame, as
-``svtpu`` pads it, so that a run has one shape. On a card the encode and
-the decode run as CUDA graphs (``models/encode_graph.py``), one at a time,
-and the all-gather runs after the graph, outside it.
+``svtpu`` pads it, so that a run has one shape. The encode and the decode
+run eagerly on every device: as CUDA graphs they ran no faster on an H100,
+and their private memory pools held 17.5 GiB and 32.9 GiB at batch 8.
 
 ``load_frame_pm1`` decodes an image file as the reference does (PIL,
 imported where it is used), and ``precompute_embeddings`` turns a frame
@@ -32,7 +32,6 @@ from svtpu_torch.config import PerceptualConfig
 from svtpu_torch.evaluation.common import padded_chunks
 from svtpu_torch.models.autoencoder_kl import AutoencoderKL, DiagonalGaussian
 from svtpu_torch.models.encode_graph import GraphedEncodes
-from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.ops.draws import GlobalRows, ShardedGenerator
 from svtpu_torch.parallel import distributed
 from svtpu_torch.parallel.distributed import local_batch_to_global
@@ -75,15 +74,7 @@ class PerceptualEncoder(GraphedEncodes):
       mesh: a ``parallel.mesh.Mesh`` whose "data" axis splits each batch;
         ``make_mesh()`` by default (one rank without a process group). The
         batch size is rounded up to a multiple of the axis.
-
-    On a card without a "model" mesh axis the encode and the decode run as
-    CUDA graphs (``graph_route``), one graph held at a time: at batch 8 and
-    1280x704 the encode's pool holds 17.5 GiB and the decode's 32.9 GiB,
-    so a call of the other kind frees the graph before it. ``drop_graphs()``
-    frees the one held.
     """
-
-    _one_graph = True
 
     def __init__(self, params: Mapping[str, torch.Tensor],
                  cfg: PerceptualConfig = PerceptualConfig(),
@@ -99,7 +90,17 @@ class PerceptualEncoder(GraphedEncodes):
         self.batch_size = -(-batch_size // ndata) * ndata
         self.stochastic = stochastic
         self.seed = seed
-        self._graphed = graph_route(self.device, self.mesh) == "graph"
+
+    @property
+    def host_hw(self) -> Tuple[int, int]:
+        """The SD input ``(h, w)``, which frames are resized to on the host."""
+        w, h = preprocess_size(self.cfg.resize_wh)
+        return h, w
+
+    @property
+    def frames_per_code(self) -> int:
+        """One latent a frame."""
+        return 1
 
     def _rows(self, n: int):
         """This rank's rows ``[lo, hi)`` of an ``n``-row batch (``n`` a
@@ -134,14 +135,15 @@ class PerceptualEncoder(GraphedEncodes):
         x = self.model.decode(z / self.cfg.scale_factor)
         return torch.clamp((x.float() + 1.0) * 0.5, 0.0, 1.0)
 
-    def encode_frames(self, frames_u8: np.ndarray) -> np.ndarray:
-        """``[N, H, W, 3]`` uint8 → ``[N, H/8, W/8, 4]`` float32 latents,
-        ``batch_size`` frames a batch, the last padded to it
-        (``padded_chunks``)."""
+    def encode_frames(self, frames_u8) -> np.ndarray:
+        """``[N, H, W, 3]`` uint8 (numpy or a CPU tensor) → ``[N, H/8, W/8,
+        4]`` float32 latents on the host, ``batch_size`` frames a batch,
+        the last padded to it (``padded_chunks``)."""
         lo, hi = self._rows(self.batch_size)
         out = []
         with span("svtpu.percep.encode_frames"), torch.inference_mode():
-            for i, part, n in padded_chunks(frames_u8, self.batch_size):
+            for i, part, n in padded_chunks(np.asarray(frames_u8),
+                                            self.batch_size):
                 seed = batch_seed(self.seed, i) if self.stochastic else None
                 z = self.run_encode(
                     "sd encode", self.model, (), self._encode_body,
@@ -156,15 +158,13 @@ class PerceptualEncoder(GraphedEncodes):
         """Scaled latents → [0, 1] pixels ``[N, H, W, 3]`` float32,
         ``batch_size`` latents a batch, split over the data axis on a mesh.
         The last batch is padded (``pad_to_multiple``) to a multiple of the
-        data axis, and on the graph route to ``batch_size``, so that a run
-        replays one graph."""
+        data axis."""
         z = np.ascontiguousarray(z_nhwc, np.float32)
-        multiple = self.batch_size if self._graphed \
-            else self.mesh.size("data")
         out = []
         with torch.inference_mode():
             for i in range(0, len(z), self.batch_size):
-                zb, n = pad_to_multiple(z[i:i + self.batch_size], multiple)
+                zb, n = pad_to_multiple(z[i:i + self.batch_size],
+                                        self.mesh.size("data"))
                 lo, hi = self._rows(len(zb))
                 x = self.run_encode("sd decode", self.model, (),
                                     self._decode_body,
@@ -216,7 +216,6 @@ def precompute_embeddings(frames_dir: str | Path, out_path: str | Path,
             enc.seed = seed + i   # decorrelate posterior noise across chunks
             latents_parts.append(enc.encode_frames(pending))
             pending = nxt.result() if nxt is not None else None
-    enc.drop_graphs()
     latents = np.concatenate(latents_parts)    # [N, h, w, 4]
     emb = {p.name: np.transpose(z, (2, 0, 1))[None].astype(np.float32)
            for p, z in zip(paths, latents)}    # [1, 4, h, w] like reference

@@ -5,14 +5,11 @@
                ahead of the card; each batch goes through ``run_frames``
   pixel path:  uint8 frames (host) → device: → float [0,1] → bilinear
                resize → RBVAE encode (hard Binary-Concrete codes) → codes
-  percep path: uint8 frames (host) → host resize to the SD input (1280x704)
-               → ``PerceptualEncoder.encode_frames`` (SD latents, the
-               attention kernel inside) → percep RBVAE encode → codes
-  clip path:   uint8 frames (host) → ``ClipEncoder.encode_frames`` (to the
-               card, resized and cropped there, V-JEPA 2's encoder over
-               64-frame clips, the attention kernel inside; its features
-               stay on the card) → percep RBVAE encode, one code a
-               tubelet of two frames → each tubelet's code on its frames
+  percep path: uint8 frames (host) → host resize to ``percep.host_hw``
+               (the SD input, 1280x704; none for ``ClipEncoder``, which
+               resizes on the card) → ``percep.encode_frames`` (SD latents,
+               or V-JEPA 2's features of 64-frame clips kept on the card)
+               → percep RBVAE encode → a code a ``frames_per_code`` frames
 
 With ``cfg.pallas_trunk`` and ``cfg.pallas_sampler`` set, the RBVAE encode
 runs through the hand-written CUDA kernels. On a card the device work of
@@ -43,8 +40,6 @@ from svtpu_torch.models.encode_graph import GraphedEncodes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.ops.image import resize_u8
-from svtpu_torch.perceptual.clip import ClipEncoder
-from svtpu_torch.perceptual.embed import preprocess_size
 from svtpu_torch.utils.profiling import span
 
 # A pixel batch of more bytes than this is copied to the card in at most
@@ -108,11 +103,11 @@ class VideoSymbolPipeline(GraphedEncodes):
     Args:
       cfg / params: the RBVAE model; ``params`` is its torch state dict
         (reference names, e.g. from ``models.convert.from_jax_params``).
-      percep: optional ``PerceptualEncoder``: frames are resized on the
-        host to the SD input and SD-encoded first (the percep-RBVAE path);
-        or a ``ClipEncoder``: frames go to the card whole and are encoded
-        in clips, and the RBVAE encodes each tubelet's features (the clip
-        path).
+      percep: optional perceptual encoder (``PerceptualEncoder``,
+        ``ClipEncoder``): frames are resized on the host to its
+        ``host_hw`` where it has one, encoded by its ``encode_frames``
+        (a host array or a tensor), and the RBVAE encodes the result; each
+        code stands for the encoder's ``frames_per_code`` frames.
       temperature / hard / noise / noise_ratio: encode protocol (defaults =
         reference eval: temperature 0.2, hard, noise on).
       seed: noise seed; batch ``i`` draws from ``batch_seed(seed, i)``.
@@ -158,15 +153,12 @@ class VideoSymbolPipeline(GraphedEncodes):
         self.depth = depth
         self.resize_on = resize_on
         self.percep = percep
-        self._clips = isinstance(percep, ClipEncoder)
         # The size frames are resized to on the host, if they are.
-        self._host_hw = None
-        if percep is None:
-            if resize_on == "host":
-                self._host_hw = tuple(cfg.input_hw)
-        elif not self._clips:
-            w, h = preprocess_size(percep.cfg.resize_wh)
-            self._host_hw = (h, w)
+        if percep is not None:
+            self._host_hw = percep.host_hw
+        else:
+            self._host_hw = tuple(cfg.input_hw) if resize_on == "host" \
+                else None
         self._graphed = graph_route(self.device) == "graph"
         self._staging: dict = {}
         self._copy_stream = None
@@ -320,19 +312,16 @@ class VideoSymbolPipeline(GraphedEncodes):
         are copied, and the card resizes the chunk before meanwhile). This
         returns after the codes are read back, and the readback is ordered
         after every copy from ``frames_u8``: the caller may overwrite it as
-        soon as the call returns. On the clip path a frame's code is its
-        tubelet's (frames ``2j`` and ``2j + 1`` share one)."""
+        soon as the call returns. On the percep path a code stands for its
+        encoder's ``frames_per_code`` frames."""
         with span("svtpu.pipeline.run_frames"):
             frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
             if self._host_hw not in (None, tuple(frames.shape[1:3])):
                 with span("svtpu.pipeline.resize_host"):
                     frames = resize_u8(frames, self._host_hw)
             seed = batch_seed(self.seed, batch_index) if self.noise else None
-            if self._clips:
-                x = self.percep.encode_frames(frames)
-            elif self.percep is not None:
-                x = torch.from_numpy(self.percep.encode_frames(
-                    frames.numpy()))
+            if self.percep is not None:
+                x = torch.as_tensor(self.percep.encode_frames(frames))
             elif self._graphed:
                 with torch.inference_mode():
                     x = self._staged(frames)
@@ -345,8 +334,8 @@ class VideoSymbolPipeline(GraphedEncodes):
                                     seed)
             with span("svtpu.pipeline.readback.wait"):
                 z = z.cpu().numpy()
-            if self._clips:            # each tubelet's code on its frames
-                z = np.repeat(z, self.percep.cfg.tubelet_size,
+            if self.percep is not None:   # each code on its frames
+                z = np.repeat(z, self.percep.frames_per_code,
                               axis=0)[:len(frames)]
             return z
 

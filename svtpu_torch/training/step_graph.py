@@ -28,8 +28,8 @@ memory pool, freed with the graph: two live states of one trainer never
 share a pool, where a replay of one could overwrite the other's tensors.
 
 Which route a trainer takes follows from its device and mesh
-(``step_route``). A capture that fails raises ``StepCaptureError``: the
-trainer does not train eagerly in its place. The warm-up, the capture and
+(``ops/cuda_graph.graph_route``). A capture that fails raises
+``StepCaptureError``: the trainer does not train eagerly in its place. The warm-up, the capture and
 the launch counts are ``ops/cuda_graph.py``'s, which the serving encodes'
 graphs share.
 """
@@ -41,8 +41,6 @@ from typing import Callable
 import torch
 
 from svtpu_torch.ops import cuda_graph
-# How a ``Trainer`` runs its train step: the rule of every graph's route.
-from svtpu_torch.ops.cuda_graph import graph_route as step_route  # noqa: F401
 
 # Eager steps of a state before its capture.
 WARMUP_STEPS = 2

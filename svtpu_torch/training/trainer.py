@@ -7,7 +7,7 @@ batch, normalises uint8 frames on the device, and updates the parameters
 with Adam (optax's defaults). On a CUDA device whose mesh has no "model"
 axis the step is one CUDA graph, captured once a train state and replayed
 at every step (``step_graph.py``), as ``svtpu`` jits its step; on the CPU
-and under a "model" axis it runs eagerly (``step_route``). One body serves
+and under a "model" axis it runs eagerly (``graph_route``). One body serves
 both routes (``Trainer._step_body``). The differences from the JAX package:
 
   * The context-free passes use only the encoder's ``h``; under ``jit``
@@ -76,6 +76,7 @@ from svtpu_torch.evaluation.hamming import adjacent_hamming, modal_codes
 from svtpu_torch.models.encode_graph import GraphedEncodes
 from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
 from svtpu_torch.ops import losses
+from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.ops.draws import GlobalRows, Replicas
 from svtpu_torch.ops.image import to_float01
 from svtpu_torch.parallel import distributed
@@ -86,7 +87,7 @@ from svtpu_torch.parallel.sharding import (full_optimizer_state,
 from svtpu_torch.training.checkpoints import BestCheckpointer
 from svtpu_torch.training.metrics import MetricsWriter
 from svtpu_torch.training.schedules import temperature_schedule
-from svtpu_torch.training.step_graph import StepGraph, step_route
+from svtpu_torch.training.step_graph import StepGraph
 from svtpu_torch.utils.profiling import span
 
 _M32 = 0xFFFFFFFF
@@ -409,7 +410,7 @@ class Trainer(GraphedEncodes):
         flags' labels.
       device: CUDA unless ``"cpu"`` is asked for (raises without a card);
         under NCCL, this rank's card. On a CUDA device with no "model" mesh
-        axis every train step is a replay of a CUDA graph (``step_route``),
+        axis every train step is a replay of a CUDA graph (``graph_route``),
         and so is every probe encode after its key's first
         (``encode_frames``).
     """
@@ -469,7 +470,7 @@ class Trainer(GraphedEncodes):
         # graph and the eager step do the same arithmetic (its bias
         # corrections on the device); the CPU refuses it.
         self._capturable = self.device.type == "cuda"
-        self._graphed = step_route(self.device, self.mesh) == "graph"
+        self._graphed = graph_route(self.device, self.mesh) == "graph"
 
         if train_cfg.objective != "simple":
             self.train_batcher = PairBatcher(

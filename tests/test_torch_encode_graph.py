@@ -30,7 +30,6 @@ from svtpu_torch.ops.lstm_cuda import (lstm_binary_concrete,
 from svtpu_torch.parallel.mesh import make_mesh
 from svtpu_torch.perceptual.embed import PerceptualEncoder
 from svtpu_torch.pipeline import VideoSymbolPipeline
-from svtpu_torch.training.step_graph import step_route
 from svtpu_torch.training.trainer import Trainer
 
 from _torch_port import ArrayStore, eval_frames, eval_model
@@ -47,7 +46,6 @@ def test_route_follows_the_device_and_the_mesh():
     """CUDA (no mesh, or no "model" axis) → a graph; the CPU and a "model"
     axis → eager: one rule, the step's route's."""
     route = cuda_graph.graph_route
-    assert step_route is route
     assert route(torch.device("cuda", 0)) == "graph"
     assert route("cuda", make_mesh((1,), ("data",))) == "graph"
     assert route("cuda", make_mesh((1, 1), ("data", "model"))) == "eager"
@@ -160,7 +158,6 @@ def fake_capture(monkeypatch):
     class FakeGraph:
         def __init__(self):
             self.generators = []
-            self.was_reset = False
 
         def register_generator_state(self, gen):
             self.generators.append(gen)
@@ -169,7 +166,7 @@ def fake_capture(monkeypatch):
             pass
 
         def reset(self):
-            self.was_reset = True
+            pass
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", lambda graph, **kw:
@@ -228,14 +225,13 @@ def test_a_key_runs_eagerly_then_captures_then_replays(fake_capture,
                                                      monkeypatch):
     """``EncodeGraph``'s protocol on the stubbed capture: a key's first call
     runs eagerly, its second captures and replays, a later one replays;
-    each replay adds the launches its capture counted. Holding one graph
-    at a time (``single``), a new key frees the other key's graph."""
+    each replay adds the launches its capture counted."""
     monkeypatch.setattr(cuda_graph, "on_side_stream", lambda fn, d: fn())
     monkeypatch.setattr(cuda_graph, "pool_bytes", lambda graph: 0)
     counter = _Counter()
     counter.__name__ = "stub"
     graphs = EncodeGraph.__new__(EncodeGraph)   # the CPU stands for a card
-    vars(graphs).update(device=torch.device("cpu"), single=True,
+    vars(graphs).update(device=torch.device("cpu"),
                         launches=cuda_graph.Launches([counter]), _keys={})
     module = torch.nn.Linear(1, 1)
 
@@ -259,16 +255,12 @@ def test_a_key_runs_eagerly_then_captures_then_replays(fake_capture,
     assert key["replay_launches"] == {"stub": 1} and counter.launches == 3
     assert (EncodeGraph.captures - captures,
             EncodeGraph.replays - replays) == (1, 2)
-    (held,) = [k.graph for k in graphs._keys.values()]
-    call("dec", x[:2])
-    assert held.was_reset and [k["tag"] for k in graphs.report()] == ["dec"]
 
 
 def test_sd_batches_on_the_eager_route(monkeypatch):
-    """``PerceptualEncoder`` on the CPU (the eager route): the encode pads
-    its last batch to ``batch_size``, as ``svtpu`` does; the decode runs the
-    last batch as it is, padded only to a multiple of the data axis; and
-    the encoder holds one SD graph at a time on a card."""
+    """``PerceptualEncoder``, eager on every device: the encode pads its
+    last batch to ``batch_size``, as ``svtpu`` does; the decode runs the
+    last batch as it is, padded only to a multiple of the data axis."""
     cfg = PerceptualConfig(embed_dim=4, z_channels=4, ch=32, ch_mult=(1, 2),
                            num_res_blocks=1, compute_dtype="float32",
                            resize_wh=(96, 64))
@@ -276,7 +268,7 @@ def test_sd_batches_on_the_eager_route(monkeypatch):
     enc = PerceptualEncoder(AutoencoderKL(cfg, device="cpu").state_dict(),
                             cfg, batch_size=4, stochastic=False,
                             device="cpu")
-    assert not enc._graphed and enc._one_graph
+    assert not enc._graphed
     seen = []
     for name in ("encode", "decode"):
         run = getattr(enc.model, name)

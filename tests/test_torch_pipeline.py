@@ -95,6 +95,47 @@ def test_host_resize_matches_cv2_inter_linear(models):
     assert np.mean(codes == ref_codes) > 0.95
 
 
+class _StubPercep:
+    """A perceptual encoder as ``run_frames`` sees it: frames resized on the
+    host to ``host_hw``, one of its results a ``frames_per_code`` frames,
+    returned as a CPU tensor."""
+
+    host_hw = (32, 48)
+    frames_per_code = 2
+
+    def __init__(self, feats):
+        self.feats = feats
+        self.seen = []
+
+    def encode_frames(self, frames):
+        self.seen.append(frames)
+        return self.feats[:-(-len(frames) // self.frames_per_code)]
+
+
+def test_run_frames_follows_its_perceptual_encoder(models):
+    """``run_frames`` resizes frames on the host to the encoder's
+    ``host_hw`` before ``encode_frames``, and puts each code on the
+    encoder's ``frames_per_code`` frames, an odd batch's last code on its
+    one frame."""
+    _, params = models
+    cfg = rbvae_variant("contrastive", LATENT, **GEOM)
+    feats = torch.rand((3, 32, 32, 3),
+                       generator=torch.Generator().manual_seed(6))
+    stub = _StubPercep(feats)
+    pipe = VideoSymbolPipeline(cfg, from_jax_params(params, cfg),
+                               percep=stub, noise=False, device="cpu")
+    frames = _frames(n=5)
+    codes = pipe.run_frames(frames)
+    (seen,) = stub.seen
+    assert seen.dtype == torch.uint8 and seen.device.type == "cpu"
+    assert torch.equal(seen, resize_u8(torch.from_numpy(frames), (32, 48)))
+    with torch.inference_mode():
+        want = pipe._codes((feats,), pipe.temperature, pipe.noise_ratio,
+                           None).numpy()
+    assert codes.shape == (5, LATENT)
+    np.testing.assert_array_equal(codes, np.repeat(want, 2, axis=0)[:5])
+
+
 @pytest.mark.parametrize("n, hw, whole", [
     (64, (720, 1280), False),       # the HD batch: COPY_CHUNKS chunks
     (63, (720, 1280), False),       # a short last chunk

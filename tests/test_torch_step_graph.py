@@ -13,9 +13,10 @@ from svtpu_torch import batch_seed
 from svtpu_torch.config import TrainConfig, rbvae_variant
 from svtpu_torch.data.segments import split_segments
 from svtpu_torch.ops import draws
+from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.parallel.mesh import make_mesh
 from svtpu_torch.training.schedules import temperature_schedule
-from svtpu_torch.training.step_graph import StepCaptureError, step_route
+from svtpu_torch.training.step_graph import StepCaptureError
 from svtpu_torch.training.trainer import Noise, Trainer
 
 from _torch_port import ArrayStore
@@ -128,10 +129,10 @@ def test_route_follows_the_device_and_the_mesh():
     data, model = make_mesh((1,), ("data",)), make_mesh((1, 1),
                                                         ("data", "model"))
     cuda = torch.device("cuda", 0)
-    assert step_route(cuda, data) == "graph"
-    assert step_route("cuda", make_mesh((1,), ("data",))) == "graph"
-    assert step_route(cuda, model) == "eager"
-    assert step_route("cpu", data) == step_route("cpu", model) == "eager"
+    assert graph_route(cuda, data) == "graph"
+    assert graph_route("cuda", make_mesh((1,), ("data",))) == "graph"
+    assert graph_route(cuda, model) == "eager"
+    assert graph_route("cpu", data) == graph_route("cpu", model) == "eager"
     for mesh in ((1,), (1, 1)):
         axes = ("data", "model")[:len(mesh)]
         tr = _trainer(mesh_shape=mesh, mesh_axes=axes)

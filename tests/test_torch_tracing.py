@@ -171,8 +171,8 @@ def test_a_capture_span_a_capture(fake_capture, tmp_path):
     assert [x[0] for x in spans] == ["svtpu.graph.capture"] * 2
 
     graphs = EncodeGraph.__new__(EncodeGraph)   # the CPU stands for a card
-    vars(graphs).update(device=torch.device("cpu"), single=False,
-                        launches=launches, _keys={})
+    vars(graphs).update(device=torch.device("cpu"), launches=launches,
+                        _keys={})
     module = torch.nn.Linear(1, 1)
 
     def body(inputs, temperature, noise_scale, gen):
