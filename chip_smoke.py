@@ -918,16 +918,17 @@ def percep_pipeline(weights: dict, kernel: bool, dtype: str = "bfloat16",
 
 def phase_percep_path(card: str) -> dict:
     """The perceptual path at full width: 16 seeded 720x1280 frames through
-    ``run_frames`` (host resize to 1280x704, SD encode in batches of 8 with
-    the attention kernel, percep RBVAE encode with the encoder LSTM and the
-    sampler in one kernel),
+    ``run_frames`` (resize to 1280x704 on the card, SD encode in batches of
+    8 with the attention kernel, percep RBVAE encode with the encoder LSTM
+    and the sampler in one kernel),
     then one ``decode_latents`` (the decoder's attention). Launches counted;
-    then the kernel path against the plain path, deterministic."""
+    then the card's resize against the host's; then the kernel path
+    against the plain path, deterministic."""
     from svtpu_torch.ops.attention import flash_attention
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
-    from svtpu_torch.ops.image import resize_u8
     from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
+    from svtpu_torch.perceptual.embed import PerceptualEncoder
 
     t0 = time.perf_counter()
     frames = np.random.default_rng(7).integers(
@@ -945,7 +946,10 @@ def phase_percep_path(card: str) -> dict:
     for name in by_kernel:
         by_kernel[name] = 0
     torch.cuda.reset_peak_memory_stats()
+    resizes = PerceptualEncoder.resizes
     codes = pipe.run_frames(frames, 0)
+    require(PerceptualEncoder.resizes == resizes + 1,
+            "percep run_frames: the HD batch was not resized on the card")
     z = pipe.percep.encode_frames(frames[:2, :704])
     pixels = pipe.percep.decode_latents(z)
     torch.cuda.synchronize()
@@ -975,8 +979,9 @@ def phase_percep_path(card: str) -> dict:
             and pixels.min() >= 0.0 and pixels.max() <= 1.0,
             "percep decoded pixels")
 
+    sd_frames = percep_resize_against_host(pipe, weights, frames, card)
+
     # The slice against its plain path: AE at its mode, noise off.
-    sd_frames = resize_u8(torch.from_numpy(frames), (704, 1280)).numpy()
     agree, rel = {}, {}
     for dtype, n in (("bfloat16", PERCEP_FRAMES), ("float32", 4)):
         det = {k: percep_pipeline(weights, k, dtype, deterministic=True)
@@ -1028,6 +1033,69 @@ def phase_percep_path(card: str) -> dict:
           f"[{card}]")
     return {"launches": launches, "fps": med, "encode_ms": med_enc,
             "weights": weights}
+
+
+def percep_resize_against_host(pipe, weights: dict, frames: np.ndarray,
+                               card: str) -> np.ndarray:
+    """``run_frames``' resize on the card against ``resize_u8`` on the
+    host: the pixels (at most one grey level apart, at most 1% differing),
+    then, with the AE at its mode and noise off, the latents of the two
+    resized batches (relative gap at most 0.05, the benchmark's
+    ``latent_err`` limit) and their codes through ``run_frames`` (at least
+    98% of bits agree); ``PerceptualEncoder.resizes`` a request; the
+    resize's time on the card (CUDA events) beside the host's, a batch of
+    ``PERCEP_BATCH``. Returns the card-resized frames, on the host."""
+    from svtpu_torch.ops.image import resize_u8
+    from svtpu_torch.perceptual.embed import PerceptualEncoder
+
+    hw = pipe.percep.input_hw
+    x = torch.from_numpy(frames)
+    host = resize_u8(x, hw).numpy()
+    sd_frames = resize_u8(x.cuda(), hw).cpu().numpy()
+    diff = np.abs(sd_frames.astype(np.int16) - host)
+    share = float((diff != 0).mean())
+    print(f"percep resize: card vs host ({len(frames)} frames 720x1280 -> "
+          f"{hw[1]}x{hw[0]}): max difference {int(diff.max())} grey "
+          f"level(s), share of pixels that differ {share:.5f}")
+    require(diff.max() <= 1 and share <= 0.01,
+            "percep resize: the card's differs from the host's")
+
+    det = percep_pipeline(weights, True, deterministic=True)
+    lat = {k: det.percep.encode_frames(f)
+           for k, f in (("card", sd_frames), ("host", host))}
+    rel = float(np.abs(lat["card"] - lat["host"]).max()
+                / np.abs(lat["host"]).max())
+    per_request = []
+    codes = {}
+    for k, f in (("run_frames", frames), ("host", host)):
+        before = PerceptualEncoder.resizes
+        codes[k] = det.run_frames(f)
+        per_request.append(PerceptualEncoder.resizes - before)
+    agree = float((codes["run_frames"] == codes["host"]).mean())
+    print(f"percep resize: latents card-resized vs host-resized, max abs "
+          f"gap / max |latent| {rel:.3e} (limit 0.05); codes of run_frames "
+          f"vs the host-resized frames agree {agree:.4f} (limit 0.98); "
+          f"PerceptualEncoder.resizes a request: HD frames "
+          f"{per_request[0]}, frames at the SD input {per_request[1]}")
+    require(rel <= 0.05 and agree >= 0.98,
+            "percep resize: the card's route strays from the host's")
+    require(per_request == [1, 0], f"percep resize: resizes a request "
+            f"{per_request}, expected [1, 0]")
+    del det
+
+    batch = x[:PERCEP_BATCH]
+    on_card = batch.cuda()
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        resize_u8(batch, hw)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    card_ms, spread = cuda_ms(lambda: resize_u8(on_card, hw))
+    print(f"time: percep resize of {PERCEP_BATCH} uint8 720x1280 frames to "
+          f"{hw[1]}x{hw[0]}: card {card_ms:.3f} ms (CUDA events, spread "
+          f"{spread:.3f}), host {statistics.median(host_ms):.1f} ms (median "
+          f"of 5) [{card}]")
+    return sd_frames
 
 
 CLIP_FRAMES = 128
@@ -1368,10 +1436,12 @@ def phase_encode_graphs(card: str, weights: dict) -> dict:
     pipe.drop_graphs()
 
     # The perceptual path: the percep RBVAE's graph, on the SD first
-    # stage's latents (eager on both routes).
+    # stage's latents (eager on both routes), of the frames resized on the
+    # card as run_frames resizes them.
     frames = np.random.default_rng(7).integers(
         0, 256, (PERCEP_FRAMES, 720, 1280, 3), np.uint8)
-    sd_frames = resize_u8(torch.from_numpy(frames), (704, 1280)).numpy()
+    sd_frames = resize_u8(torch.from_numpy(frames).cuda(),
+                          (704, 1280)).cpu().numpy()
 
     def percep_run(p, call):
         if call == "latents":

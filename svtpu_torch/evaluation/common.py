@@ -17,15 +17,16 @@ from svtpu_torch.ops.cuda_graph import graph_route
 from svtpu_torch.training.checkpoints import BestCheckpointer
 
 
-def padded_chunks(frames: np.ndarray, chunk: int):
-    """``(offset, part, n)`` for each run of ``chunk`` frames: ``part``
-    holds ``n`` frames, the last one padded to ``chunk`` by repeating its
-    last frame, so every step has one shape."""
+def padded_chunks(frames, chunk: int):
+    """``(offset, part, n)`` for each run of ``chunk`` frames (a numpy
+    array, or a tensor on any device, which the padding stays on):
+    ``part`` holds ``n`` frames, the last one padded to ``chunk`` by
+    repeating its last frame, so every step has one shape."""
     for i in range(0, len(frames), chunk):
         part = frames[i:i + chunk]
         n = len(part)
         if n < chunk:
-            part = np.concatenate([part, np.repeat(part[-1:], chunk - n, 0)])
+            part = part[[*range(n)] + [n - 1] * (chunk - n)]
         yield i, part, n
 
 

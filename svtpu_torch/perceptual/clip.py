@@ -92,8 +92,9 @@ class ClipEncoder(GraphedEncodes):
         self._graphed = graph_route(self.device) == "graph"
 
     @property
-    def host_hw(self) -> None:
-        """None: the frames are resized on the card."""
+    def input_hw(self) -> None:
+        """None: ``encode_frames`` takes frames of any size and resizes
+        them itself, on the card."""
         return None
 
     @property

@@ -2,7 +2,8 @@
 a mesh; the port of ``svtpu/perceptual/embed.py``.
 
 Only the AutoencoderKL runs (no UNet or CLIP); uint8 frames travel to the
-card and are normalised there; the posterior is sampled
+card (unless they are there already) and are normalised there; the
+posterior is sampled
 (``posterior.sample()``, the reference's ``ddpm.py:542-549``) or taken at
 its mode. Latents come back as NHWC ``[N, H/8, W/8, 4]`` float32 numpy
 arrays, scaled by ``scale_factor``. On a mesh whose data axis has a group,
@@ -62,6 +63,9 @@ def load_frame_pm1(path: str, resize_wh: Tuple[int, int]) -> np.ndarray:
 class PerceptualEncoder(GraphedEncodes):
     """AutoencoderKL encode and decode in batches of ``batch_size``.
 
+    ``PerceptualEncoder.resizes`` counts, over the process, the batches
+    that ``run_frames`` resized to ``input_hw`` on an encoder's device.
+
     Args:
       params: the AutoencoderKL's CompVis-named state dict (from
         ``perceptual.convert``).
@@ -75,6 +79,8 @@ class PerceptualEncoder(GraphedEncodes):
         ``make_mesh()`` by default (one rank without a process group). The
         batch size is rounded up to a multiple of the axis.
     """
+
+    resizes = 0
 
     def __init__(self, params: Mapping[str, torch.Tensor],
                  cfg: PerceptualConfig = PerceptualConfig(),
@@ -92,8 +98,10 @@ class PerceptualEncoder(GraphedEncodes):
         self.seed = seed
 
     @property
-    def host_hw(self) -> Tuple[int, int]:
-        """The SD input ``(h, w)``, which frames are resized to on the host."""
+    def input_hw(self) -> Tuple[int, int]:
+        """The SD input ``(h, w)``, to which ``run_frames`` resizes frames
+        of another size, on this encoder's device (``encode_frames``
+        itself never resizes)."""
         w, h = preprocess_size(self.cfg.resize_wh)
         return h, w
 
@@ -136,19 +144,24 @@ class PerceptualEncoder(GraphedEncodes):
         return torch.clamp((x.float() + 1.0) * 0.5, 0.0, 1.0)
 
     def encode_frames(self, frames_u8) -> np.ndarray:
-        """``[N, H, W, 3]`` uint8 (numpy or a CPU tensor) → ``[N, H/8, W/8,
-        4]`` float32 latents on the host, ``batch_size`` frames a batch,
-        the last padded to it (``padded_chunks``)."""
+        """``[N, H, W, 3]`` uint8 (numpy, or a tensor on the host or on this
+        encoder's device) → ``[N, H/8, W/8, 4]`` float32 latents on the
+        host, ``batch_size`` frames a batch, the last padded to it
+        (``padded_chunks``) where the frames lie. Host frames go to the
+        device a batch (this rank's rows) at a time; frames already there
+        are padded and sliced there, and encoded with no copy."""
+        if torch.is_tensor(frames_u8):
+            frames = frames_u8.contiguous()
+        else:
+            frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
         lo, hi = self._rows(self.batch_size)
         out = []
         with span("svtpu.percep.encode_frames"), torch.inference_mode():
-            for i, part, n in padded_chunks(np.asarray(frames_u8),
-                                            self.batch_size):
+            for i, part, n in padded_chunks(frames, self.batch_size):
                 seed = batch_seed(self.seed, i) if self.stochastic else None
-                z = self.run_encode(
-                    "sd encode", self.model, (), self._encode_body,
-                    (torch.from_numpy(np.ascontiguousarray(part[lo:hi])),),
-                    seed=seed)
+                z = self.run_encode("sd encode", self.model, (),
+                                    self._encode_body, (part[lo:hi],),
+                                    seed=seed)
                 z = local_batch_to_global(z, self.mesh)[:n]
                 with span("svtpu.percep.readback.wait"):
                     out.append(z.cpu().numpy())

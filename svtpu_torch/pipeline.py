@@ -5,11 +5,13 @@
                ahead of the card; each batch goes through ``run_frames``
   pixel path:  uint8 frames (host) → device: → float [0,1] → bilinear
                resize → RBVAE encode (hard Binary-Concrete codes) → codes
-  percep path: uint8 frames (host) → host resize to ``percep.host_hw``
-               (the SD input, 1280x704; none for ``ClipEncoder``, which
-               resizes on the card) → ``percep.encode_frames`` (SD latents,
-               or V-JEPA 2's features of 64-frame clips kept on the card)
-               → percep RBVAE encode → a code a ``frames_per_code`` frames
+  percep path: uint8 frames (host) → where they differ from
+               ``percep.input_hw`` (the SD input, 1280x704; none for
+               ``ClipEncoder``, which resizes inside its encode), copied to
+               the encoder's device and resized there, still uint8 →
+               ``percep.encode_frames`` (SD latents, or V-JEPA 2's
+               features of 64-frame clips kept on the card) → percep RBVAE
+               encode → a code a ``frames_per_code`` frames
 
 With ``cfg.pallas_trunk`` and ``cfg.pallas_sampler`` set, the RBVAE encode
 runs through the hand-written CUDA kernels. On a card the device work of
@@ -104,10 +106,11 @@ class VideoSymbolPipeline(GraphedEncodes):
       cfg / params: the RBVAE model; ``params`` is its torch state dict
         (reference names, e.g. from ``models.convert.from_jax_params``).
       percep: optional perceptual encoder (``PerceptualEncoder``,
-        ``ClipEncoder``): frames are resized on the host to its
-        ``host_hw`` where it has one, encoded by its ``encode_frames``
-        (a host array or a tensor), and the RBVAE encodes the result; each
-        code stands for the encoder's ``frames_per_code`` frames.
+        ``ClipEncoder``): frames are resized to its ``input_hw`` where it
+        has one, on its ``device`` (counted in its class's ``resizes``),
+        encoded by its ``encode_frames`` (a host array or a tensor), and
+        the RBVAE encodes the result; each code stands for the encoder's
+        ``frames_per_code`` frames. ``resize_on`` does not apply.
       temperature / hard / noise / noise_ratio: encode protocol (defaults =
         reference eval: temperature 0.2, hard, noise on).
       seed: noise seed; batch ``i`` draws from ``batch_seed(seed, i)``.
@@ -153,12 +156,14 @@ class VideoSymbolPipeline(GraphedEncodes):
         self.depth = depth
         self.resize_on = resize_on
         self.percep = percep
-        # The size frames are resized to on the host, if they are.
+        # The size uint8 frames are resized to before the encode, if they
+        # are, and on which device: the perceptual encoder's, or the host.
         if percep is not None:
-            self._host_hw = percep.host_hw
+            self._u8_hw, self._u8_device = percep.input_hw, percep.device
         else:
-            self._host_hw = tuple(cfg.input_hw) if resize_on == "host" \
+            self._u8_hw = tuple(cfg.input_hw) if resize_on == "host" \
                 else None
+            self._u8_device = torch.device("cpu")
         self._graphed = graph_route(self.device) == "graph"
         self._staging: dict = {}
         self._copy_stream = None
@@ -312,13 +317,19 @@ class VideoSymbolPipeline(GraphedEncodes):
         are copied, and the card resizes the chunk before meanwhile). This
         returns after the codes are read back, and the readback is ordered
         after every copy from ``frames_u8``: the caller may overwrite it as
-        soon as the call returns. On the percep path a code stands for its
+        soon as the call returns. On the percep path frames that need the
+        resize are copied to the encoder's device whole (synchronously,
+        from pageable memory) and resized there; a code stands for its
         encoder's ``frames_per_code`` frames."""
         with span("svtpu.pipeline.run_frames"):
             frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
-            if self._host_hw not in (None, tuple(frames.shape[1:3])):
+            if self._u8_hw not in (None, tuple(frames.shape[1:3])):
+                frames = frames.to(self._u8_device)
+                # On a card the span times the resize's enqueue alone.
                 with span("svtpu.pipeline.resize_host"):
-                    frames = resize_u8(frames, self._host_hw)
+                    frames = resize_u8(frames, self._u8_hw)
+                if self.percep is not None:
+                    type(self.percep).resizes += 1
             seed = batch_seed(self.seed, batch_index) if self.noise else None
             if self.percep is not None:
                 x = torch.as_tensor(self.percep.encode_frames(frames))

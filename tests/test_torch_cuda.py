@@ -510,3 +510,57 @@ def test_rope_tables_built_once(clip_requests):
         enc.encode_frames(frames)
     torch.cuda.synchronize()
     assert rope_tables.builds == before + 1
+
+
+@pytest.mark.cuda
+def test_percep_resize_on_the_card(hd_requests):
+    """The card's ``resize_u8`` of seeded 720x1280 frames to the SD input,
+    704x1280, lies within one grey level of the host's, with at least 99%
+    of pixels equal. A tiny SD first stage's ``run_frames`` on the card
+    hands ``encode_frames`` the frames resized on the card and adds one to
+    ``PerceptualEncoder.resizes`` a request, and none for frames already at
+    the SD input; ``encode_frames`` gives those frames, on the card or
+    from the host, the same latents bit for bit, a batch padded on the
+    card too."""
+    from svtpu_torch.config import PerceptualConfig
+    from svtpu_torch.models.autoencoder_kl import AutoencoderKL
+    from svtpu_torch.ops.image import resize_u8
+    from svtpu_torch.perceptual.embed import PerceptualEncoder
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    requests = [f[:8] for f in hd_requests[:3]]
+    x = torch.from_numpy(requests[0])
+    host = resize_u8(x, (704, 1280))
+    card = resize_u8(x.cuda(), (704, 1280))
+    assert card.device.type == "cuda" and card.dtype == torch.uint8
+    diff = (card.cpu().int() - host.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.99
+
+    cfg = PerceptualConfig(embed_dim=4, z_channels=4, ch=32, ch_mult=(1, 2),
+                           num_res_blocks=1, compute_dtype="float32",
+                           resize_wh=(96, 64))
+    ae = AutoencoderKL(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(5)).state_dict()
+    enc = PerceptualEncoder(ae, cfg, batch_size=8, seed=3)
+    seen = []
+    encode = enc.encode_frames
+    enc.encode_frames = lambda f: seen.append(f) or encode(f)
+    rb = rbvae_variant("percep", 25, lstm_residual=True, input_hw=(32, 48),
+                       conv_features=(16, 16, 16), pallas_sampler=True)
+    sd = Seq2SeqBinaryVAE(rb, device="cpu",
+                          generator=torch.Generator().manual_seed(6)
+                          ).state_dict()
+    pipe = VideoSymbolPipeline(rb, sd, percep=enc, temperature=0.3)
+    before = PerceptualEncoder.resizes
+    for i, frames in enumerate(requests):
+        codes = pipe.run_frames(frames, i)
+        assert PerceptualEncoder.resizes == before + i + 1
+        assert codes.shape == (8, 25) and set(np.unique(codes)) <= {0, 1}
+    assert all(f.device.type == "cuda" and f.dtype == torch.uint8
+               and f.shape == (8, 64, 96, 3) for f in seen)
+    on_card = seen[-1]
+    pipe.run_frames(on_card.cpu().numpy(), 9)
+    assert PerceptualEncoder.resizes == before + len(requests)
+    for f in (on_card, on_card[:5]):
+        assert np.array_equal(encode(f), encode(f.cpu().numpy()))

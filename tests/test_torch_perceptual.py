@@ -15,6 +15,7 @@ from svtpu.pipeline import VideoSymbolPipeline as JaxPipeline
 from svtpu_torch.config import PerceptualConfig, rbvae_variant
 from svtpu_torch.models.autoencoder_kl import DiagonalGaussian
 from svtpu_torch.models.convert import from_jax_params as rbvae_weights
+from svtpu_torch.ops.image import resize_u8
 from svtpu_torch.perceptual.convert import from_jax_params
 from svtpu_torch.perceptual.embed import PerceptualEncoder, preprocess_size
 from svtpu_torch.perceptual.interpolate import (interpolate_images, lerp,
@@ -158,6 +159,44 @@ def test_percep_run_frames_codes_match_jax(sampler_kernel):
     assert got.dtype == ref.dtype == np.uint8
     assert got.shape == ref.shape == (6, LATENT)
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("stochastic", [False, True],
+                         ids=["mode", "sampled"])
+def test_encode_frames_takes_a_tensor_as_it_takes_numpy(stochastic):
+    """The same 6 frames (batches of 4, the last padded) as numpy and as a
+    tensor on the encoder's device: the same latents, bit for bit, with the
+    posterior's mode and with a seeded sample."""
+    _, enc = _encoders(stochastic=stochastic, seed=3)
+    frames = _frames(6, seed=8)
+    want = enc.encode_frames(frames)
+    got = enc.encode_frames(torch.from_numpy(frames))
+    assert got.shape == want.shape == (6, 32, 48, 4)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stochastic", [False, True],
+                         ids=["mode", "sampled"])
+def test_percep_run_frames_resizes_on_the_encoders_device(stochastic):
+    """Frames off the SD input: ``run_frames`` resizes them on the encoder's
+    device (the CPU here) and counts one resize; its codes equal, bit for
+    bit, those of the same frames resized on the host with ``resize_u8``
+    first, which are at the SD input and are not resized again."""
+    _, tae = _encoders(stochastic=stochastic, seed=4)
+    jcfg, params = _percep_rbvae()
+    tcfg = rbvae_variant("percep", LATENT, pallas_sampler=True, **RBVAE)
+    pipe = VideoSymbolPipeline(tcfg, rbvae_weights(params, tcfg), percep=tae,
+                               temperature=1.0, noise_ratio=3.0,
+                               device="cpu")
+    frames = _frames(6, hw=(70, 100), seed=9)
+    before = PerceptualEncoder.resizes
+    got = pipe.run_frames(frames, 5)
+    assert PerceptualEncoder.resizes == before + 1
+    sd_frames = resize_u8(torch.from_numpy(frames), tae.input_hw).numpy()
+    want = pipe.run_frames(sd_frames, 5)
+    assert PerceptualEncoder.resizes == before + 1
+    assert got.shape == (6, LATENT)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_percep_noisy_codes_are_seeded_per_batch():

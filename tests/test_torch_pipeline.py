@@ -96,12 +96,14 @@ def test_host_resize_matches_cv2_inter_linear(models):
 
 
 class _StubPercep:
-    """A perceptual encoder as ``run_frames`` sees it: frames resized on the
-    host to ``host_hw``, one of its results a ``frames_per_code`` frames,
-    returned as a CPU tensor."""
+    """A perceptual encoder as ``run_frames`` sees it: frames resized to
+    ``input_hw`` on its ``device`` and counted in ``resizes``, one of its
+    results a ``frames_per_code`` frames, returned as a CPU tensor."""
 
-    host_hw = (32, 48)
+    input_hw = (32, 48)
+    device = torch.device("cpu")
     frames_per_code = 2
+    resizes = 0
 
     def __init__(self, feats):
         self.feats = feats
@@ -113,10 +115,11 @@ class _StubPercep:
 
 
 def test_run_frames_follows_its_perceptual_encoder(models):
-    """``run_frames`` resizes frames on the host to the encoder's
-    ``host_hw`` before ``encode_frames``, and puts each code on the
-    encoder's ``frames_per_code`` frames, an odd batch's last code on its
-    one frame."""
+    """``run_frames`` resizes frames to the encoder's ``input_hw`` on its
+    device (the CPU here) before ``encode_frames``, counts the batch in the
+    encoder class's ``resizes``, and puts each code on the encoder's
+    ``frames_per_code`` frames, an odd batch's last code on its one
+    frame."""
     _, params = models
     cfg = rbvae_variant("contrastive", LATENT, **GEOM)
     feats = torch.rand((3, 32, 32, 3),
@@ -125,7 +128,9 @@ def test_run_frames_follows_its_perceptual_encoder(models):
     pipe = VideoSymbolPipeline(cfg, from_jax_params(params, cfg),
                                percep=stub, noise=False, device="cpu")
     frames = _frames(n=5)
+    resizes = _StubPercep.resizes
     codes = pipe.run_frames(frames)
+    assert _StubPercep.resizes == resizes + 1
     (seen,) = stub.seen
     assert seen.dtype == torch.uint8 and seen.device.type == "cpu"
     assert torch.equal(seen, resize_u8(torch.from_numpy(frames), (32, 48)))
