@@ -153,7 +153,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # The bf16 kernels meant for the tensor cores (substrings of their symbols).
 TENSOR_CORE_KERNELS = ("fused_conv01_tc", "flash_d512_kernel",
-                       "flash_bf16_kernel", "flash_mma_kernel")
+                       "flash_bf16_kernel", "flash_mma_kernel",
+                       "window_attn_kernel", "flash_d72_kernel")
 # Each kernel's time before its redesign for Hopper (PERF.md §6, NVIDIA
 # H100 80GB HBM3, 700.00 W): constants, printed on a line of their own
 # beside this run's times and kept out of the kernels line. For
@@ -1179,6 +1180,175 @@ def phase_clip_path(card: str) -> dict:
     return {"launches": counts, "requests": requests, "fps": med}
 
 
+SAM2_FRAMES = 32
+# SAM 2.1 Hiera-L's attention blocks on one frame, as (windows x heads, Nq,
+# Nk) at D = 72 by the token grid's side, the key window (0: global),
+# whether the queries are pooled, the heads; and how many blocks of each.
+SAM2_SHAPES = {"(2048, 64, 64)": ((256, 8, False, 2), 2),
+               "(4096, 16, 64)": ((256, 8, True, 4), 1),
+               "(4096, 16, 16)": ((128, 4, False, 4), 5),
+               "(8192, 4, 16)": ((128, 4, True, 8), 1),
+               "(128, 256, 256)": ((64, 16, False, 8), 32),
+               "(8, 4096, 4096)": ((64, 0, False, 8), 3),
+               "(256, 64, 256)": ((64, 16, True, 16), 1),
+               "(256, 64, 64)": ((32, 8, False, 16), 3)}
+
+
+def sam2_attention_times(card: str) -> list:
+    """Each of SAM 2's attention shapes at the cell's 32 frames, q, k and v
+    read in place from one bf16 qkv grid: the D = 72 kernel's time
+    (``window_attention``, CUDA events), its operations and bytes, its
+    bound and share of it; ``scaled_dot_product_attention`` on the same
+    windows copied out (the copies not timed); the plain version (f32,
+    TF32 off) and the kernel's largest error against it, beside two bf16
+    steps at the output's scale."""
+    from svtpu_torch.ops.attention import (window_attention,
+                                           window_attention_plain)
+    from svtpu_torch.ops.attention import _windows
+
+    rows = []
+    for name, ((side, window, pooled, heads), blocks) in SAM2_SHAPES.items():
+        C = 72 * heads
+        g = torch.Generator(device="cuda").manual_seed(side + heads)
+        qkv = torch.randn(SAM2_FRAMES, side, side, 3 * C, generator=g,
+                          device="cuda").bfloat16()
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        if pooled:
+            q = q.reshape(SAM2_FRAMES, side // 2, 2, side // 2, 2,
+                          C).amax(dim=(2, 4))
+        ms, spread = cuda_ms(lambda: window_attention(q, k, v, heads, window),
+                             warmup=3, trials=3, iters=5)
+        wk = window or side
+        wq = wk // 2 if pooled else wk
+        qw = _windows(q, heads, wq, wq).unflatten(0, (-1, 1))
+        kw, vw = (_windows(t, heads, wk, wk).unflatten(0, (-1, 1))
+                  for t in (k, v))
+        try:
+            lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qw, kw, vw), warmup=2, trials=3, iters=3)
+        except RuntimeError as e:       # a grid past the library's limits
+            print(f"scaled_dot_product_attention {name}: {e}")
+            lib_ms = float("nan")
+        B, nq, nk = qw.shape[0], wq * wq, wk * wk
+        ops = 4.0 * B * nq * nk * 72
+        nbytes = 2.0 * B * 72 * (2 * nq + 2 * nk)
+        bound = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        got = window_attention(q, k, v, heads, window)
+        t0 = time.perf_counter()
+        want = window_attention_plain(q.float(), k.float(), v.float(), heads,
+                                      window)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got.float() - want).abs().max())
+        step = 2.0 ** -7 * float(want.abs().max())
+        require(err <= 2 * step, f"window_attention {name}: error {err} over "
+                f"two bf16 steps {2 * step}")
+        row = {"shape": name, "blocks": blocks, "kernel_ms": ms,
+               "spread": spread, "tflops": ops / ms / 1e9,
+               "bound_ms": bound, "share": bound / ms,
+               "bound_by": "bytes" if nbytes / PEAK_BYTES
+               > ops / PEAK_BF16_FLOPS else "operations",
+               "sdpa_ms": lib_ms, "plain_ms": plain_ms, "max_abs_err": err,
+               "two_steps": 2 * step}
+        rows.append(row)
+        print(f"time: window_attention {name} x{SAM2_FRAMES} frames "
+              f"({blocks} blocks a frame): kernel {ms:.4f} ms (spread "
+              f"{spread:.3f}), {row['tflops']:.1f} TFLOP/s, bound "
+              f"{bound:.4f} ms by {row['bound_by']}, {100 * row['share']:.1f}% "
+              f"of it; scaled_dot_product_attention {lib_ms:.4f} ms; plain "
+              f"{plain_ms:.1f} ms; max abs err {err:.3e} (two bf16 steps "
+              f"{2 * step:.3e}) [{card}]")
+        del qkv, q, k, v, qw, kw, vw, got, want
+        torch.cuda.empty_cache()
+    per_request = sum(r["kernel_ms"] * r["blocks"] for r in rows)
+    print(f"time: window_attention, a 32-frame request's 48 launches: "
+          f"{per_request:.2f} ms of kernels, bound "
+          f"{sum(r['bound_ms'] * r['blocks'] for r in rows):.2f} ms [{card}]")
+    return rows
+
+
+def phase_sam2_path(card: str) -> dict:
+    """The image path at full width, as the SAM 2 cell drives it: 32 seeded
+    uint8 720x1280 frames in page-locked memory through ``run_frames`` of
+    a percep RBVAE over SAM 2.1's Hiera-L image encoder (``Sam2Encoder``,
+    seeded weights at the published widths), three requests: eager,
+    captured, replayed. Each request must launch the windowed D = 72
+    kernel once a windowed or query-pooled block (45) and the global one
+    once a global block (3), and nothing else of ``flash_attention``'s
+    (no mma.sync ``bf16`` launch); one code a frame."""
+    from svtpu_torch.config import Sam2HieraConfig, rbvae_variant
+    from svtpu_torch.models.rbvae import Seq2SeqBinaryVAE
+    from svtpu_torch.models.sam2 import Sam2ImageEncoder
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.perceptual.sam2 import Sam2Encoder
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    t0 = time.perf_counter()
+    scfg = Sam2HieraConfig()
+    params = Sam2ImageEncoder(scfg, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(
+                                  40)).state_dict()
+    enc = Sam2Encoder(params, scfg)
+    rb = rbvae_variant("percep", LATENT, lstm_residual=True,
+                       in_channels=scfg.fpn_hidden_size,
+                       out_channels=scfg.fpn_hidden_size,
+                       input_hw=(scfg.feature_hw, scfg.feature_hw),
+                       compute_dtype="bfloat16", pallas_sampler=True)
+    sd = Seq2SeqBinaryVAE(rb, device="cpu",
+                          generator=torch.Generator().manual_seed(41)
+                          ).state_dict()
+    pipe = VideoSymbolPipeline(rb, sd, percep=enc, batch=SAM2_FRAMES)
+    buf = torch.empty((SAM2_FRAMES, 720, 1280, 3), dtype=torch.uint8,
+                      pin_memory=True)
+    buf.copy_(torch.from_numpy(np.random.default_rng(42).integers(
+        0, 256, buf.shape, np.uint8)))
+    frames = buf.numpy()
+    print(f"sam2 path: encoder, pipeline and frames built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    by_kernel = flash_attention.launches_by_kernel
+    for name in by_kernel:
+        by_kernel[name] = 0
+    flash_attention.launches = 0
+    requests = 3
+    torch.cuda.reset_peak_memory_stats()
+    codes = [pipe.run_frames(frames, i) for i in range(requests)]
+    torch.cuda.synchronize()
+    counts = dict(by_kernel)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_global = len(scfg.global_attention_blocks)
+    n_window = len(scfg.blocks) - n_global
+    print(f"sam2 path: run_frames x{requests} ({SAM2_FRAMES} frames "
+          f"720x1280, eager, captured, replayed); flash_attention by kernel "
+          f"{counts}; peak device memory {peak:.2f} GiB")
+    require(counts["bf16_d72_window"] == requests * n_window,
+            f"sam2 path: {n_window} windowed D = 72 launches a request")
+    require(counts["bf16_d72"] == requests * n_global,
+            f"sam2 path: {n_global} global D = 72 launches a request")
+    require(flash_attention.launches == requests * (n_window + n_global)
+            and counts["bf16"] == 0, "sam2 path: attention off the D = 72 "
+            "kernels")
+    for c in codes:
+        require(c.shape == (SAM2_FRAMES, LATENT)
+                and set(np.unique(c)) <= {0, 1}, "sam2 path codes")
+
+    fps = []
+    for t in range(5):
+        t0 = time.perf_counter()
+        pipe.run_frames(frames, 10 + t)
+        fps.append(SAM2_FRAMES / (time.perf_counter() - t0))
+    med = statistics.median(fps)
+    print(f"time: sam2 run_frames ({SAM2_FRAMES} uint8 720x1280 pinned host "
+          f"frames in, codes out): {med:.2f} frames/s median of 5, spread "
+          f"{(max(fps) - min(fps)) / med:.3f} [{card}]")
+    pipe.drop_graphs()
+    enc.drop_graphs()
+    del pipe, enc, params, buf
+    torch.cuda.empty_cache()
+    return {"launches": counts, "requests": requests, "fps": med,
+            "attention": sam2_attention_times(card)}
+
+
 def graph_keys(owner) -> list:
     """Each key of the encode graphs of ``owner`` and of its perceptual
     encoder: its tag, inputs, eager calls, captures, replays, the capture's
@@ -1275,7 +1445,8 @@ WRAPPER_KERNELS = {
     "lstm_binary_concrete": ("lstm_binary_concrete_kernel",),
     "binary_concrete_fused": ("binary_concrete_kernel",),
     "flash_attention": ("flash_d512_kernel", "flash_bf16_kernel",
-                        "flash_mma_kernel", "flash_f32_kernel")}
+                        "flash_mma_kernel", "flash_f32_kernel",
+                        "window_attn_kernel", "flash_d72_kernel")}
 
 
 def traced_replays(graphs, tag: str, shape: list, fn, n: int, what: str,
@@ -5116,6 +5287,7 @@ def main() -> None:
     wide = phase_wide_path(card)
     percep = phase_percep_path(card)
     clip = phase_clip_path(card)
+    phase_sam2_path(card)
     graphs = phase_encode_graphs(card, percep.pop("weights"))
     train = phase_train_path(card)
     evaluation = phase_eval_path(card)

@@ -2,8 +2,9 @@
 ``parse_transition_flags`` and ``BUILTIN_VIDEOS`` (``svtpu/config.py:23-106``),
 ``RBVAEConfig`` and ``rbvae_variant`` (``:114-254``), ``TrainConfig``
 (``:262-461``), ``PerceptualConfig`` (``:464-479``) and ``to_json`` /
-``from_json`` (``:482-491``). ``VJEPA2Config`` is the port's own: the
-video encoder of the clip path, which ``svtpu`` does not have.
+``from_json`` (``:482-491``). ``VJEPA2Config`` and ``Sam2HieraConfig`` are
+the port's own: the video encoder of the clip path and SAM 2.1's image
+encoder, which ``svtpu`` does not have.
 
 Field names and defaults are the reference's, so one config means the same
 model in both packages. ``pallas_trunk`` / ``pallas_sampler`` keep their
@@ -340,6 +341,75 @@ class VJEPA2Config:
     @property
     def mlp_dim(self) -> int:
         return int(self.hidden_size * self.mlp_ratio)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sam2HieraConfig:
+    """SAM 2.1's image encoder, Hiera-L with its FPN neck: the widths of
+    ``facebook/sam2.1-hiera-large`` (``sam2/configs/sam2.1/
+    sam2.1_hiera_l.yaml``; transformers' ``Sam2HieraDetConfig`` and
+    ``Sam2VisionConfig`` field names), and its preprocessing
+    (``image_processing_sam2_fast.py``: bilinear, antialiased resize to
+    ``image_size`` square, the aspect ratio not kept, divided by 255,
+    ImageNet's mean and deviation). Block ``i``'s window is its stage's
+    (the previous stage's at a stage's first block), 0 (global) at
+    ``global_attention_blocks``; the first block of stages 2 to
+    ``num_query_pool_stages + 1`` max-pools its queries by
+    ``query_stride``. The prompt encoder, the mask decoder and the memory
+    path are not on the encode path."""
+
+    image_size: int = 1024
+    num_channels: int = 3
+    patch_kernel_size: int = 7
+    patch_stride: int = 4
+    patch_padding: int = 3
+    blocks_per_stage: Tuple[int, ...] = (2, 6, 36, 4)
+    embed_dim_per_stage: Tuple[int, ...] = (144, 288, 576, 1152)
+    num_attention_heads_per_stage: Tuple[int, ...] = (2, 4, 8, 16)
+    window_size_per_stage: Tuple[int, ...] = (8, 4, 16, 8)
+    global_attention_blocks: Tuple[int, ...] = (23, 33, 43)
+    query_stride: int = 2
+    num_query_pool_stages: int = 3
+    window_positional_embedding_background_size: Tuple[int, ...] = (7, 7)
+    mlp_ratio: float = 4.0
+    layer_norm_eps: float = 1e-6
+    fpn_hidden_size: int = 256
+    backbone_channel_list: Tuple[int, ...] = (1152, 576, 288, 144)
+    fpn_top_down_levels: Tuple[int, ...] = (2, 3)
+    image_mean: Tuple[float, ...] = (0.485, 0.456, 0.406)
+    image_std: Tuple[float, ...] = (0.229, 0.224, 0.225)
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def grid(self) -> int:
+        """Tokens along a side of the patch embed's grid (256)."""
+        return self.image_size // self.patch_stride
+
+    @property
+    def blocks(self) -> list:
+        """Each block's ``(stage, dim_in, dim_out, heads, window,
+        pooled)``."""
+        out = []
+        for st, n in enumerate(self.blocks_per_stage):
+            for j in range(n):
+                first = st > 0 and j == 0
+                prev = st - 1 if first else st
+                window = 0 if len(out) in self.global_attention_blocks \
+                    else self.window_size_per_stage[prev]
+                out.append((st, self.embed_dim_per_stage[prev],
+                            self.embed_dim_per_stage[st],
+                            self.num_attention_heads_per_stage[st], window,
+                            first and st <= self.num_query_pool_stages))
+        return out
+
+    @property
+    def feature_hw(self) -> int:
+        """A side of the output level: stage 3's grid (64)."""
+        return self.grid // self.query_stride ** 2
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -13,8 +13,9 @@ import jax.numpy as jnp
 
 from svtpu.ops import attention as jax_attn
 from portbench.tracing import kernel_label
-from svtpu_torch.ops.attention import (KERNELS, attention, blocked_attention,
-                                       flash_attention, kernel_for)
+from svtpu_torch.ops.attention import (D72_KERNELS, KERNELS, attention,
+                                       blocked_attention, flash_attention,
+                                       kernel_for, window_attention)
 
 
 def _qkv(B, N, D, seed, dtype=np.float32):
@@ -96,18 +97,24 @@ def test_backward_matches_jax_grad(N):
 
 def test_kernel_dispatch_on_dtype_and_width():
     """The launcher's dispatch: the D = 512 wgmma kernel serves the SD
-    model's width, the warp-specialised D = 64 kernel V-JEPA 2's heads, the
-    mma.sync kernel every other width."""
+    model's width, the warp-specialised D = 64 kernel V-JEPA 2's heads,
+    ``csrc/window_attention.cu``'s global kernel SAM 2's heads of 72, the
+    mma.sync kernel every other width. The D = 72 kernels' two routes
+    count under keys of their own."""
     assert kernel_for(torch.bfloat16, 512) == "bf16_d512"
     assert kernel_for(torch.bfloat16, 64) == "bf16_d64"
+    assert kernel_for(torch.bfloat16, 72) == "bf16_d72"
     for D in (32, 96, 256, 480):
         assert kernel_for(torch.bfloat16, D) == "bf16"
     for D in (64, 512):
         assert kernel_for(torch.float32, D) == "f32"
     assert set(flash_attention.launches_by_kernel) == {
-        "bf16_d512", "bf16_d64", "bf16", "f32"}
-    assert set(KERNELS) == set(flash_attention.launches_by_kernel)
+        "bf16_d512", "bf16_d64", "bf16", "f32", "bf16_d72",
+        "bf16_d72_window"}
+    assert set(KERNELS) | set(D72_KERNELS) \
+        == set(flash_attention.launches_by_kernel)
     assert sorted(KERNELS.values()) == list(range(len(KERNELS)))
+    assert sorted(D72_KERNELS.values()) == [0, 1]
 
 
 def _cuda_kernels(src: str) -> dict:
@@ -197,3 +204,71 @@ def test_wrapper_checks_shapes():
         flash_attention(x, torch.zeros(1, 9, 64), x)
     with pytest.raises(TypeError):
         flash_attention(x.half(), x.half(), x.half())
+
+
+def test_d72_kernels_have_labels_of_their_own():
+    """The benchmark's SAM 2 readers count the trace labels
+    ``window_attn_kernel`` and ``flash_d72_kernel``: the two
+    ``__global__`` functions of ``csrc/window_attention.cu``, neither
+    label holding ``flash_bf16_kernel`` or ``flash_d512_kernel`` (the clip
+    and SD cells' readers' labels)."""
+    src = (Path(__file__).resolve().parent.parent / "svtpu_torch" / "csrc"
+           / "window_attention.cu").read_text()
+    labels = {k["label"] for k in _cuda_kernels(src).values()}
+    assert labels == {"window_attn_kernel", "flash_d72_kernel"}
+    assert not any("flash_bf16_kernel" in x or "flash_d512_kernel" in x
+                   for x in labels)
+
+
+def test_wrapper_at_d72_takes_fewer_queries_than_keys():
+    """D = 72 (SAM 2's heads) passes the checks with ``Nq != Nk``, and the
+    plain version computes it (against the product written out); other
+    widths keep one shape for q, k and v."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(3, 5, 72, generator=g)
+    k, v = (torch.randn(3, 20, 72, generator=g) for _ in range(2))
+    before = dict(flash_attention.launches_by_kernel)
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches_by_kernel == before
+    want = torch.softmax(q @ k.transpose(1, 2) / 72 ** 0.5, -1) @ v
+    assert got.shape == (3, 5, 72)
+    assert (got - want).abs().max() <= 1e-5
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 5, 64), torch.zeros(1, 9, 64),
+                        torch.zeros(1, 9, 64))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v[:, :10])
+
+
+@pytest.mark.parametrize("window, pooled", [(4, False), (4, True), (0, False),
+                                            (8, True)])
+def test_window_attention_plain_against_a_loop(window, pooled):
+    """``window_attention`` on the CPU, q, k and v read from one qkv grid
+    ``[2, 8, 8, 3 C]`` of 2 heads, the queries max-pooled 2x2 where
+    ``pooled``: each window and head against ``softmax(q kᵀ / sqrt(D)) v``
+    of its own tokens, written out."""
+    heads, C, S = 2, 144, 8
+    g = torch.Generator().manual_seed(window + pooled)
+    qkv = torch.randn(2, S, S, 3 * C, generator=g)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    if pooled:
+        q = q.reshape(2, S // 2, 2, S // 2, 2, C).amax(dim=(2, 4))
+    got = window_attention(q, k, v, heads, window)
+    assert got.shape == q.shape
+    wk = window or S
+    wq = wk // 2 if pooled else wk
+    n = S // wk
+    for b in range(2):
+        for y in range(n):
+            for x in range(n):
+                for h in range(heads):
+                    c = slice(72 * h, 72 * h + 72)
+                    kk = k[b, y * wk:(y + 1) * wk, x * wk:(x + 1) * wk, c]
+                    vv = v[b, y * wk:(y + 1) * wk, x * wk:(x + 1) * wk, c]
+                    qq = q[b, y * wq:(y + 1) * wq, x * wq:(x + 1) * wq, c]
+                    kk, vv, qq = (t.reshape(-1, 72) for t in (kk, vv, qq))
+                    o = torch.softmax(qq @ kk.T / 72 ** 0.5, -1) @ vv
+                    out = got[b, y * wq:(y + 1) * wq, x * wq:(x + 1) * wq, c]
+                    assert (out.reshape(-1, 72) - o).abs().max() <= 1e-5
+    with pytest.raises(ValueError):
+        window_attention(q, k, v, heads, 3)

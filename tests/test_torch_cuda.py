@@ -564,3 +564,176 @@ def test_percep_resize_on_the_card(hd_requests):
     assert PerceptualEncoder.resizes == before + len(requests)
     for f in (on_card, on_card[:5]):
         assert np.array_equal(encode(f), encode(f.cpu().numpy()))
+
+
+# The attention shapes of one 1024x1024 frame of SAM 2.1 Hiera-L at D = 72,
+# each on a few windows' worth of grid: (key grid side, key window (0:
+# global), queries pooled 2x2, heads) → per frame (windows x heads, Nq,
+# Nk) of the cell: stage 1, the pooled first blocks of stages 2-4, the
+# windowed blocks of stages 2-4 and stage 3's global blocks.
+SAM2_SHAPES = {"(2048, 64, 64)": (32, 8, False, 2),
+               "(4096, 16, 64)": (32, 8, True, 4),
+               "(4096, 16, 16)": (16, 4, False, 4),
+               "(8192, 4, 16)": (16, 4, True, 8),
+               "(128, 256, 256)": (32, 16, False, 8),
+               "(8, 4096, 4096)": (64, 0, False, 8),
+               "(256, 64, 256)": (32, 16, True, 16),
+               "(256, 64, 64)": (16, 8, False, 16)}
+
+
+def _within_two_steps(got, want):
+    step = 2.0 ** -7 * float(want.abs().max())
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - want).abs().max()) <= 2 * step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SAM2_SHAPES))
+def test_window_attention_at_the_cell_shapes(shape):
+    """``window_attention`` on the card (``window_attn_kernel``, global:
+    ``flash_d72_kernel``) reading q, k and v in place from one bf16 qkv
+    grid ``[2, S, S, 3 C]`` (token stride ``3 C``), the queries max-pooled
+    2x2 where the block pools them, against the plain version in f32 with
+    TF32 off: within two bf16 steps at the output's scale, scores spread
+    (std ~2); one launch counted under the route's key, none under
+    ``bf16``."""
+    from svtpu_torch.ops.attention import (flash_attention, window_attention,
+                                           window_attention_plain)
+
+    _require_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    side, window, pooled, heads = SAM2_SHAPES[shape]
+    C = 72 * heads
+    g = torch.Generator().manual_seed(side * 7 + heads)
+    qkv = torch.randn(2, side, side, 3 * C, generator=g)
+    qkv[..., :C] *= 2.0
+    qkv = qkv.cuda().bfloat16()
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    if pooled:
+        q = q.reshape(2, side // 2, 2, side // 2, 2, C).amax(dim=(2, 4))
+    key = "bf16_d72" if window == 0 else "bf16_d72_window"
+    before = dict(flash_attention.launches_by_kernel)
+    got = window_attention(q, k, v, heads, window)
+    torch.cuda.synchronize()
+    after = flash_attention.launches_by_kernel
+    assert after[key] == before[key] + 1 and after["bf16"] == before["bf16"]
+    want = window_attention_plain(q.float(), k.float(), v.float(), heads,
+                                  window)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _within_two_steps(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged 1000", "Nq 37 Nk 150",
+                                  "Nq 16 Nk 64", "dominant key",
+                                  "graph replay"])
+def test_flash_attention_d72_cases(case):
+    """``flash_attention`` at D = 72 (``flash_d72_kernel``) on ``[B, N,
+    72]`` against ``blocked_attention`` (f32, TF32 off), within two bf16
+    steps: N ragged against the 64-row blocks and 64-key tiles, fewer
+    queries than keys (one block spanning several rows of the batch), one
+    dominant key a row (a wrong running-max rescale shows); and two
+    launches captured in one CUDA graph whose replay equals eager launches
+    bit for bit."""
+    from svtpu_torch.ops.attention import blocked_attention, flash_attention
+
+    _require_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, nq, nk = {"ragged 1000": (3, 1000, 1000), "Nq 37 Nk 150": (5, 37, 150),
+                 "Nq 16 Nk 64": (40, 16, 64), "dominant key": (2, 700, 700),
+                 "graph replay": (4, 300, 1200)}[case]
+    g = torch.Generator().manual_seed(nq + nk)
+    q = torch.randn(B, nq, 72, generator=g) * 1.5
+    k, v = (torch.randn(B, nk, 72, generator=g) for _ in range(2))
+    if case == "dominant key":
+        k[:, torch.randperm(nk, generator=g)] = 4.0 * q / q.norm(
+            dim=-1, keepdim=True) * 72 ** 0.5
+    q, k, v = (t.cuda().bfloat16() for t in (q, k, v))
+    before = flash_attention.launches_by_kernel["bf16_d72"]
+    if case == "graph replay":
+        other = (q.flip(1).contiguous(), k, v)
+        eager = [flash_attention(q, k, v), flash_attention(*other)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            flash_attention(q, k, v)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [flash_attention(q, k, v), flash_attention(*other)]
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_kernel["bf16_d72"] - before == 5
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+        got = outs[0]
+    else:
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_kernel["bf16_d72"] == before + 1
+    assert got.shape == (B, nq, 72) and got.dtype == torch.bfloat16
+    _within_two_steps(got, blocked_attention(q, k, v).float())
+
+
+@pytest.mark.cuda
+def test_sam2_encoder_graph_equals_eager_bit_for_bit():
+    """SAM 2.1's image encoder at its published widths (seeded weights)
+    through ``Sam2Encoder.encode_frames``, three requests of 6 page-locked
+    360x640 frames on the graph route (the first eager, the second
+    captured, then a replay) and on the eager route: equal features
+    request for request, one capture, 45 windowed and 3 global D = 72
+    launches a request (none of the mma.sync kernel), the position table
+    built once an encoder; then ``run_frames`` of a percep RBVAE over the
+    features on both routes: equal codes, one a frame."""
+    from svtpu_torch.config import Sam2HieraConfig
+    from svtpu_torch.models import sam2
+    from svtpu_torch.models.encode_graph import EncodeGraph
+    from svtpu_torch.ops.attention import flash_attention
+    from svtpu_torch.perceptual.sam2 import Sam2Encoder
+    from svtpu_torch.pipeline import VideoSymbolPipeline
+
+    _require_card()
+    cfg = Sam2HieraConfig()
+    params = sam2.Sam2ImageEncoder(
+        cfg, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(8)).state_dict()
+    builds = sam2.pos_table.builds
+    graphed, eager = (Sam2Encoder(params, cfg) for _ in range(2))
+    assert sam2.pos_table.builds == builds + 2
+    eager._graphed = False
+    rng = np.random.default_rng(13)
+    requests = []
+    for _ in range(3):
+        buf = torch.empty((6, 360, 640, 3), dtype=torch.uint8,
+                          pin_memory=True)
+        buf.copy_(torch.from_numpy(rng.integers(0, 256, buf.shape,
+                                                np.uint8)))
+        requests.append(buf.numpy())
+    captures = EncodeGraph.captures
+    for frames in requests:
+        before = dict(flash_attention.launches_by_kernel)
+        got = graphed.encode_frames(frames).clone()
+        after = flash_attention.launches_by_kernel
+        assert after["bf16_d72_window"] - before["bf16_d72_window"] == 45
+        assert after["bf16_d72"] - before["bf16_d72"] == 3
+        assert after["bf16"] == before["bf16"]
+        want = eager.encode_frames(frames)
+        assert got.shape == (6, 64, 64, 256) and got.dtype == torch.bfloat16
+        assert torch.equal(got, want)
+    assert EncodeGraph.captures - captures == 1
+    assert sam2.pos_table.builds == builds + 2
+
+    rb = rbvae_variant("percep", 25, lstm_residual=True, in_channels=256,
+                       out_channels=256, input_hw=(64, 64),
+                       compute_dtype="bfloat16", pallas_sampler=True)
+    sd = Seq2SeqBinaryVAE(rb, device="cpu",
+                          generator=torch.Generator().manual_seed(9)
+                          ).state_dict()
+    codes = []
+    for enc in (graphed, eager):
+        pipe = VideoSymbolPipeline(rb, sd, percep=enc, temperature=0.3)
+        pipe._graphed = enc._graphed
+        codes.append([pipe.run_frames(f, i) for i, f in enumerate(requests)])
+    for g, e in zip(*codes):
+        assert g.shape == (6, 25) and np.array_equal(g, e)

@@ -313,7 +313,7 @@ def test_each_rank_writes_its_launches(two_ranks):
     """With ``SVTPU_LAUNCHES_DIR`` set, each rank writes
     ``launches_<rank>.json`` when a command returns: the four kernel
     wrappers' launches, all 0 on the CPU (their plain versions run), and
-    ``flash_attention``'s by kernel."""
+    ``flash_attention``'s by kernel (the D = 72 routes' two keys too)."""
     out, _ = two_ranks
     for r in range(WORLD):
         got = json.loads((out / "launches" / f"launches_{r}.json")
@@ -322,7 +322,8 @@ def test_each_rank_writes_its_launches(two_ranks):
             ["fused_conv01", "lstm_binary_concrete", "binary_concrete_fused",
              "flash_attention"], 0)
         assert got["flash_attention_by_kernel"] == dict.fromkeys(
-            ["bf16_d512", "bf16_d64", "bf16", "f32"], 0)
+            ["bf16_d512", "bf16_d64", "bf16", "f32", "bf16_d72",
+             "bf16_d72_window"], 0)
 
 
 def test_wandb_sweep_reports_from_rank0(two_ranks):
