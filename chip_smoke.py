@@ -25,9 +25,15 @@ on and their launches counted:
     search; seeded weights, f32, 256x256, batch 64), whose LSTM the fused
     kernel does not take, through ``fused_conv01``, the plain LSTM and the
     standalone ``binary_concrete``;
+  * the SD first stage's GroupNorm+SiLU (``group_norm_silu``): the norm as
+    the port ran it before the kernel (its device operations), the kernel
+    against its plain version at every norm shape of the SD encoder at
+    704x1280 in bf16 and f32, and both timed beside the library's
+    ``F.group_norm`` and the bytes bound;
   * the perceptual path: the SD first stage at its published widths
     (``PerceptualConfig()``, bf16, seeded random weights) in
-    ``PerceptualEncoder`` batches of 8 through ``flash_attention``, then the
+    ``PerceptualEncoder`` batches of 8 through ``group_norm_silu`` (22
+    launches a batch, counted and traced) and ``flash_attention``, then the
     ``percep-flagship`` RBVAE (latent 25, 4-layer residual LSTM) through
     ``lstm_binary_concrete``, on 16 seeded 720x1280 frames; and one
     ``decode_latents`` (the decoder's attention);
@@ -652,6 +658,231 @@ def phase_attention_kernel() -> dict:
             "max_abs_err_d64": out["[32,8192,64] bf16 spread 8"]}
 
 
+# The SD encoder's norms at the percep cell's size (8 frames at 704x1280):
+# name -> (channels, height, width, SiLU). Level 1's and 2's first norms
+# take the previous level's width; the mid block's attention norm has no
+# SiLU.
+GN_BATCH = 8
+GN_SHAPES = {"level 0": (128, 704, 1280, True),
+             "level 1, first norm": (128, 352, 640, True),
+             "level 1": (256, 352, 640, True),
+             "level 2, first norm": (256, 176, 320, True),
+             "level 2": (512, 176, 320, True),
+             "level 3, mid, norm_out": (512, 88, 160, True),
+             "mid attention": (512, 88, 160, False)}
+# How many of the encoder's 22 norms a batch has at each shape.
+GN_PER_BATCH = {"level 0": 4, "level 1, first norm": 1, "level 1": 3,
+                "level 2, first norm": 1, "level 2": 3,
+                "level 3, mid, norm_out": 9, "mid attention": 1}
+
+
+def gn_inputs(c: int, h: int, w: int, dt, seed: int):
+    """A channels-last activation ``[8, c, h, w]`` on the card with a mean
+    and a scale of its own a channel (as a conv's output has), and the
+    norm's float32 weight and bias."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shift = torch.randn(c, generator=g, device="cuda") * 2.0
+    scale = torch.rand(c, generator=g, device="cuda") * 2.0 + 0.25
+    x = torch.randn((GN_BATCH, h, w, c), generator=g, device="cuda")
+    x = (x * scale + shift).to(dt).permute(0, 3, 1, 2)
+    weight = torch.rand(c, generator=g, device="cuda") + 0.5
+    bias = torch.randn(c, generator=g, device="cuda") * 0.5
+    return x, weight, bias
+
+
+def device_ops(fn, n: int = 3) -> tuple:
+    """The device operations of one call of ``fn`` (``n`` traced, after a
+    warm-up): the ten longest as (operator -> kernel, launches a call, ms
+    a call), and every one's launches a call."""
+    import tempfile
+
+    from svtpu_torch.utils import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.inference_mode(), profiling.trace(tmp):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        tb = trace_breakdown(Path(tmp), n)
+    return ([(name, k / n, ms / n) for name, k, ms in tb["top"]],
+            {name: k / n for name, k in tb["counts"].items()})
+
+
+def group_norm_diagnosis(card: str) -> dict:
+    """One level-0 norm of the SD encoder as the port ran it before the
+    kernel (``group_norm_silu_plain``: a cast to f32, ``F.group_norm``,
+    ``F.silu``, a cast back) on a channels-last bf16 ``[8, 128, 704,
+    1280]``, alone and followed by the 128 -> 128 conv that reads it, each
+    with its device operations and its time."""
+    from svtpu_torch.ops.conv import conv2d_torch
+    from svtpu_torch.ops.group_norm import group_norm_silu_plain
+
+    c, h, w, _ = GN_SHAPES["level 0"]
+    x, weight, bias = gn_inputs(c, h, w, torch.bfloat16, 30)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    cw = torch.randn(c, c, 3, 3, generator=g, device="cuda") * 0.03
+    cb = torch.zeros(c, device="cuda")
+
+    def norm():
+        return group_norm_silu_plain(x, weight, bias, 1e-6, True,
+                                     torch.bfloat16)
+
+    def norm_conv():
+        return conv2d_torch(norm(), cw, cb, 1, 1, torch.bfloat16)
+
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("norm", norm), ("norm + conv", norm_conv)):
+            ms, sp = cuda_ms(fn, warmup=2, trials=3, iters=3)
+            ops, _ = device_ops(fn)
+            out[name] = {"ms": ms, "ops": ops}
+            print(f"group_norm before the kernel, {name} at [8, 128, 704, "
+                  f"1280] bf16 channels-last: {ms:.3f} ms (spread {sp:.3f}) "
+                  f"[{card}]; device ops a call: " + "; ".join(
+                      f"{op} x{k:g} {t:.3f} ms" for op, k, t in ops))
+    return out
+
+
+def group_norm_error(name: str, dt) -> float:
+    """The kernel against its plain version at one of ``GN_SHAPES`` in
+    ``dt``: bf16 within two bf16 steps at the output's largest magnitude,
+    f32 within 1e-5 of it; two launches bit for bit; one launch counted a
+    call; the output channels-last. Returns the max abs error."""
+    from svtpu_torch.ops.group_norm import (group_norm_silu,
+                                            group_norm_silu_plain)
+
+    c, h, w, silu = GN_SHAPES[name]
+    x, weight, bias = gn_inputs(c, h, w, dt, 40 + c)
+    before = group_norm_silu.launches
+    with torch.inference_mode():
+        got = group_norm_silu(x, weight, bias, 1e-6, silu, dt)
+        again = group_norm_silu(x, weight, bias, 1e-6, silu, dt)
+        want = group_norm_silu_plain(x, weight, bias, 1e-6, silu, dt)
+    torch.cuda.synchronize()
+    require(group_norm_silu.launches == before + 2,
+            f"group_norm_silu {name}: launches not counted")
+    require(got.dtype == dt and got.shape == x.shape
+            and got.is_contiguous(memory_format=torch.channels_last),
+            f"group_norm_silu {name}: dtype, shape or layout")
+    require(torch.equal(got, again),
+            f"group_norm_silu {name} {dt}: two launches differ")
+    require(bool(torch.isfinite(got.float()).all()),
+            f"group_norm_silu {name}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    limit = 2 * 2.0 ** -7 * scale if dt == torch.bfloat16 else 1e-5 * scale
+    print(f"check group_norm_silu vs plain, {name} [8, {c}, {h}, {w}] "
+          f"{'SiLU' if silu else 'no SiLU'} {dt}: max_abs_err {err:.3e} "
+          f"(limit {limit:.3e})")
+    require(err <= limit, f"group_norm_silu {name} {dt} disagrees")
+    return err
+
+
+def group_norm_checks() -> dict:
+    """Every shape of the cell in bf16 and f32; an NCHW input made
+    channels-last by the wrapper, bit for bit; a float16 input refused."""
+    from svtpu_torch.ops.group_norm import group_norm_silu
+
+    errs = {name: group_norm_error(name, torch.bfloat16)
+            for name in GN_SHAPES}
+    for name in GN_SHAPES:
+        group_norm_error(name, torch.float32)
+    x, weight, bias = gn_inputs(256, 40, 72, torch.bfloat16, 50)
+    with torch.inference_mode():
+        cl = group_norm_silu(x, weight, bias, 1e-6, True, torch.bfloat16)
+        nchw = group_norm_silu(x.contiguous(), weight, bias, 1e-6, True,
+                               torch.bfloat16)
+        try:
+            group_norm_silu(x.half(), weight, bias, 1e-6, True, torch.half)
+        except TypeError:
+            pass
+        else:
+            require(False, "group_norm_silu took a float16 input")
+    require(torch.equal(cl, nchw), "group_norm_silu: NCHW input differs")
+    print("check group_norm_silu: an NCHW input gives the channels-last "
+          "input's bits; float16 refused")
+    return errs
+
+
+def group_norm_times(card: str, build: dict, errs: dict) -> dict:
+    """At every shape of the cell: the kernel (wrapper, back to back) and
+    its device time (a CUDA graph of 20 launches), the plain version, the
+    library's ``F.silu(F.group_norm(...))`` in bf16 on the channels-last
+    input and on an NCHW copy, the bytes bound (one bf16 read and write an
+    element); then a batch's 22 norms weighed by ``GN_PER_BATCH``, and the
+    kernel's device operations at level 0."""
+    from svtpu_torch.ops.group_norm import (group_norm_silu,
+                                            group_norm_silu_plain)
+
+    regs = {fn: r for fn, r in build.items() if "group_norm_silu" in fn}
+    print("group_norm_silu kernels: " + "; ".join(
+        f"{fn}: registers {r.get('registers')}, spill bytes "
+        f"{r.get('spill_bytes')}" for fn, r in sorted(regs.items())))
+    rows, batch = {}, dict.fromkeys(("ms", "device_ms", "plain_ms",
+                                     "library_ms", "bound_ms"), 0.0)
+    with torch.inference_mode():
+        for name, (c, h, w, silu) in GN_SHAPES.items():
+            x, weight, bias = gn_inputs(c, h, w, torch.bfloat16, 60 + c)
+            xn = x.contiguous()
+
+            def kernel():
+                return group_norm_silu(x, weight, bias, 1e-6, silu,
+                                       torch.bfloat16)
+
+            wb, bb = weight.bfloat16(), bias.bfloat16()
+
+            def library(t):
+                y = F.group_norm(t, 32, wb, bb, 1e-6)
+                return F.silu(y) if silu else y
+
+            ms, sp = cuda_ms(kernel, warmup=3, trials=5, iters=5)
+            dev, _ = graph_ms(kernel, n=20)
+            plain, _ = cuda_ms(lambda: group_norm_silu_plain(
+                x, weight, bias, 1e-6, silu, torch.bfloat16), warmup=2,
+                trials=3, iters=3)
+            lib, _ = cuda_ms(lambda: library(x), warmup=2, trials=3, iters=3)
+            lib_nchw, _ = cuda_ms(lambda: library(xn), warmup=2, trials=3,
+                                  iters=3)
+            bound = 2 * 2 * x.numel() / PEAK_BYTES * 1e3
+            rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain,
+                              library_ms=lib, library_nchw_ms=lib_nchw,
+                              bound_ms=bound, max_abs_err=errs[name])
+            k = GN_PER_BATCH[name]
+            for key in batch:
+                batch[key] += k * rows[name][key]
+            print(f"time: group_norm_silu {name} [8, {c}, {h}, {w}] bf16 "
+                  f"{'SiLU' if silu else 'no SiLU'}: kernel {ms:.4f} ms "
+                  f"(spread {sp:.3f}), device {dev:.4f} ms "
+                  f"({bound / dev:.1%} of the bytes bound {bound:.4f} ms, "
+                  f"{2 * 2 * x.numel() / dev / 1e6:.0f} GB/s at 4 B an "
+                  f"element), plain {plain:.3f} ms, F.group_norm"
+                  f"{'+F.silu' if silu else ''} bf16 {lib:.3f} ms "
+                  f"(channels-last in), {lib_nchw:.3f} ms (NCHW in) "
+                  f"[{card}]")
+        c, h, w, _ = GN_SHAPES["level 0"]
+        x, weight, bias = gn_inputs(c, h, w, torch.bfloat16, 70)
+        ops, _ = device_ops(lambda: group_norm_silu(x, weight, bias, 1e-6,
+                                                    True, torch.bfloat16))
+    print(f"time: group_norm_silu, a batch's 22 norms: kernel "
+          f"{batch['ms']:.3f} ms, device {batch['device_ms']:.3f} ms "
+          f"({batch['bound_ms'] / batch['device_ms']:.1%} of the bytes bound "
+          f"{batch['bound_ms']:.3f} ms), plain {batch['plain_ms']:.3f} ms, "
+          f"library {batch['library_ms']:.3f} ms [{card}]")
+    print("group_norm_silu at level 0, device ops a call: " + "; ".join(
+        f"{op} x{k:g} {t:.3f} ms" for op, k, t in ops))
+    return {"shapes": rows, "batch": batch, "registers": regs}
+
+
+def phase_group_norm_kernel(card: str, build: dict) -> dict:
+    """GroupNorm+SiLU: the norm as it ran before its kernel, the kernel
+    against its plain version, and their times."""
+    diagnosis = group_norm_diagnosis(card)
+    errs = group_norm_checks()
+    return dict(group_norm_times(card, build, errs), before=diagnosis)
+
+
 def flagship(pallas: bool, dtype: str = "bfloat16"):
     from svtpu_torch.config import rbvae_variant
     from svtpu_torch.models.convert import from_jax_params, load_params_npz
@@ -900,6 +1131,21 @@ def percep_rbvae_cfg(kernel: bool, dtype: str = "bfloat16"):
                          lstm_residual=True, pallas_sampler=kernel)
 
 
+@contextlib.contextmanager
+def plain_norms():
+    """The SD first stage's norms through ``group_norm_silu_plain`` on the
+    card, for a path of plain versions to hold the kernels against."""
+    from svtpu_torch.models import autoencoder_kl
+    from svtpu_torch.ops.group_norm import group_norm_silu_plain
+
+    kernel = autoencoder_kl.group_norm_silu
+    autoencoder_kl.group_norm_silu = group_norm_silu_plain
+    try:
+        yield
+    finally:
+        autoencoder_kl.group_norm_silu = kernel
+
+
 def percep_pipeline(weights: dict, kernel: bool, dtype: str = "bfloat16",
                     deterministic: bool = False):
     """``VideoSymbolPipeline(percep=PerceptualEncoder(...))``: both kernels
@@ -920,14 +1166,18 @@ def percep_pipeline(weights: dict, kernel: bool, dtype: str = "bfloat16",
 def phase_percep_path(card: str) -> dict:
     """The perceptual path at full width: 16 seeded 720x1280 frames through
     ``run_frames`` (resize to 1280x704 on the card, SD encode in batches of
-    8 with the attention kernel, percep RBVAE encode with the encoder LSTM
-    and the sampler in one kernel),
-    then one ``decode_latents`` (the decoder's attention). Launches counted;
-    then the card's resize against the host's; then the kernel path
-    against the plain path, deterministic."""
+    8 with the norm and attention kernels, percep RBVAE encode with the
+    encoder LSTM and the sampler in one kernel),
+    then one ``decode_latents`` (the decoder's attention). Launches counted,
+    one SD encode traced (its norms on the kernel alone); then the card's
+    resize against the host's; then the kernel path against the plain path
+    (the norms through ``plain_norms``), deterministic, and two encodes of
+    the kernel path bit for bit."""
+    from svtpu_torch.models.autoencoder_kl import GroupNormSiLU
     from svtpu_torch.ops.attention import flash_attention
     from svtpu_torch.ops.binarize_cuda import binary_concrete_fused
     from svtpu_torch.ops.conv_trunk_cuda import fused_conv01
+    from svtpu_torch.ops.group_norm import group_norm_silu
     from svtpu_torch.ops.lstm_cuda import lstm_binary_concrete
     from svtpu_torch.perceptual.embed import PerceptualEncoder
 
@@ -940,7 +1190,7 @@ def phase_percep_path(card: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
 
     counters = (flash_attention, lstm_binary_concrete, binary_concrete_fused,
-                fused_conv01)
+                fused_conv01, group_norm_silu)
     for fn in counters:
         fn.launches = 0
     by_kernel = flash_attention.launches_by_kernel
@@ -957,7 +1207,8 @@ def phase_percep_path(card: str) -> dict:
     launches = {"flash_attention": flash_attention.launches,
                 "lstm_binary_concrete": lstm_binary_concrete.launches,
                 "binary_concrete": binary_concrete_fused.launches,
-                "fused_conv01": fused_conv01.launches}
+                "fused_conv01": fused_conv01.launches,
+                "group_norm_silu": group_norm_silu.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"percep path: run_frames x1 ({PERCEP_FRAMES} frames 720x1280, SD "
           f"batch {PERCEP_BATCH}, noise on) + encode_frames x1 (2 frames) + "
@@ -968,6 +1219,26 @@ def phase_percep_path(card: str) -> dict:
         require(launches[name] > 0, f"percep path never launched {name}")
     require(by_kernel["bf16_d512"] == launches["flash_attention"],
             "percep path: attention not on the D = 512 kernel")
+    # Every norm a kernel launch: 2 + 1 encoder batches, 1 decoder batch.
+    model = pipe.percep.model
+    norms = {part: sum(isinstance(m, GroupNormSiLU) for m in
+                       getattr(model, part).modules())
+             for part in ("encoder", "decoder")}
+    require(norms["encoder"] == 22 and launches["group_norm_silu"]
+            == 3 * norms["encoder"] + norms["decoder"],
+            f"percep path: {launches['group_norm_silu']} group_norm_silu "
+            f"launches for {norms} norms")
+    _, ops = device_ops(
+        lambda: pipe.percep.encode_frames(frames[:PERCEP_BATCH, :704]), 2)
+    norm_ops = {op: k for op, k in ops.items() if "group_norm_silu" in op
+                or "Moments" in op or "nchwToNhwc" in op
+                or "nhwcToNchw" in op}
+    print(f"percep path: a traced SD encode of {PERCEP_BATCH} frames, the "
+          f"norms' and layout conversions' device ops a batch: {norm_ops}")
+    require(not any("Moments" in op for op in ops)
+            and sum(k for op, k in norm_ops.items()
+                    if op.endswith("group_norm_silu_kernel")) == 22,
+            "percep path: the SD encode's norms not all on the kernel")
     require(codes.shape == (PERCEP_FRAMES, LATENT) and codes.dtype == np.uint8
             and set(np.unique(codes)) <= {0, 1}, "percep noisy codes")
     print(f"percep path: codes: share of ones {codes.mean():.3f}, bits that "
@@ -991,11 +1262,15 @@ def phase_percep_path(card: str) -> dict:
             # Eager: phase_encode_graphs holds the graph route against
             # this one.
             p._graphed = False
-        lat = {k: p.percep.encode_frames(sd_frames[:n]) for k, p in
-               det.items()}
+        lat, c = {}, {}
+        for k, p in det.items():
+            with contextlib.nullcontext() if k else plain_norms():
+                lat[k] = p.percep.encode_frames(sd_frames[:n])
+                c[k] = p.run_frames(frames[:n])
+        require(np.array_equal(lat[True], det[True].percep.encode_frames(
+            sd_frames[:n])), f"percep latents: two {dtype} encodes differ")
         rel[dtype] = float(np.abs(lat[True] - lat[False]).max()
                            / np.abs(lat[False]).max())
-        c = {k: p.run_frames(frames[:n]) for k, p in det.items()}
         agree[dtype] = float((c[True] == c[False]).mean())
         del det
     print(f"percep path: kernel path vs plain path, deterministic: latents "
@@ -5282,6 +5557,7 @@ def main() -> None:
             "binary_concrete": phase_sampler_kernel(),
             "lstm_binary_concrete": phase_lstm_kernel(),
             "flash_attention": phase_attention_kernel()}
+    group_norm = phase_group_norm_kernel(card, build)
     main_path = phase_main_path(card)
     simple = phase_simple_path(card)
     wide = phase_wide_path(card)
@@ -5305,7 +5581,8 @@ def main() -> None:
               f"{r['name']} {PREV_MS[r['name']]} ms, now {r['ms']:.4f} ms"
               for r in rows))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "group_norm_silu": {
+        k: group_norm[k] for k in ("shapes", "batch")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

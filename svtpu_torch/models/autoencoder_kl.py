@@ -11,12 +11,14 @@ prefix is stripped (``perceptual/convert.py::load_sd_first_stage``).
 
 Public layout is the JAX package's: ``encode`` takes ``[B, H, W, 3]`` in
 [-1, 1] and returns moments ``[B, H/8, W/8, 2·embed]``, ``decode`` maps
-``[B, h, w, embed]`` back to ``[B, H, W, 3]``; inside, the convs run NCHW.
-Rounding is ``svtpu``'s: GroupNorm(32, eps 1e-6) and SiLU in f32, then a
-cast to the compute dtype; convs in the compute dtype with f32 parameters;
-residual adds in the compute dtype. The mid-block attention runs through
-the hand-written kernel (``ops/attention.py``) unless ``use_kernel=False``,
-as ``svtpu``'s ``AttnBlock(use_pallas=False)`` runs the XLA version.
+``[B, h, w, embed]`` back to ``[B, H, W, 3]``; inside, the convs run NCHW
+in channels-last memory (the encoder's input is a permuted NHWC tensor, and
+the norms keep that layout). Rounding is ``svtpu``'s: GroupNorm(32, eps
+1e-6) and SiLU in f32, then a cast to the compute dtype; convs in the
+compute dtype with f32 parameters; residual adds in the compute dtype.
+The mid-block attention runs through the hand-written kernel
+(``ops/attention.py``) unless ``use_kernel=False``, as ``svtpu``'s
+``AttnBlock(use_pallas=False)`` runs the XLA version.
 """
 from __future__ import annotations
 
@@ -31,21 +33,23 @@ from svtpu_torch import resolve_device
 from svtpu_torch.config import PerceptualConfig
 from svtpu_torch.ops.attention import attention
 from svtpu_torch.ops import draws
+from svtpu_torch.ops.group_norm import group_norm_silu
 from svtpu_torch.ops.conv import Conv2dTorch
 
 
 class GroupNormSiLU(nn.GroupNorm):
     """GroupNorm(32, eps 1e-6) and optional SiLU in f32, then the compute
-    dtype (``autoencoder_kl.py:40-53``)."""
+    dtype (``autoencoder_kl.py:40-53``): ``ops/group_norm.py``, whose
+    kernel on the card writes channels-last, so the convs after it take
+    channels-last inputs."""
 
     def __init__(self, channels: int, silu: bool = True):
         super().__init__(32, channels, eps=1e-6)
         self.silu = silu
 
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        h = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                         self.eps)
-        return (F.silu(h) if self.silu else h).to(dtype)
+        return group_norm_silu(x, self.weight, self.bias, self.eps,
+                               self.silu, dtype)
 
 
 class ResnetBlock(nn.Module):

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "svtpu_torch"
 SOURCES = ("binary_concrete", "flash_attention", "fused_conv01",
-           "lstm_binary_concrete", "window_attention")
+           "group_norm_silu", "lstm_binary_concrete", "window_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

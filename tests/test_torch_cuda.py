@@ -737,3 +737,131 @@ def test_sam2_encoder_graph_equals_eager_bit_for_bit():
         codes.append([pipe.run_frames(f, i) for i, f in enumerate(requests)])
     for g, e in zip(*codes):
         assert g.shape == (6, 25) and np.array_equal(g, e)
+
+
+# The SD encoder's norms at the percep cell's size, [8, C, H, W]: (C, H,
+# W, SiLU). The first norms of levels 1 and 2 take the previous level's
+# width; the mid block's attention norm has no SiLU.
+GN_SHAPES = {"level 0": (128, 704, 1280, True),
+             "level 1, first norm": (128, 352, 640, True),
+             "level 1": (256, 352, 640, True),
+             "level 2, first norm": (256, 176, 320, True),
+             "level 2": (512, 176, 320, True),
+             "level 3": (512, 88, 160, True),
+             "mid attention": (512, 88, 160, False)}
+
+
+def _gn_inputs(c, h, w, dt, seed):
+    """A channels-last ``[8, c, h, w]`` activation with a mean and scale a
+    channel, and float32 weight and bias, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shift = torch.randn(c, generator=g, device="cuda") * 2.0
+    scale = torch.rand(c, generator=g, device="cuda") * 2.0 + 0.25
+    x = torch.randn((8, h, w, c), generator=g, device="cuda") * scale + shift
+    return (x.to(dt).permute(0, 3, 1, 2),
+            torch.rand(c, generator=g, device="cuda") + 0.5,
+            torch.randn(c, generator=g, device="cuda") * 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", list(GN_SHAPES))
+def test_group_norm_silu_at_the_cell_shapes(shape, dtype):
+    """``group_norm_silu`` on the card against its plain version: bf16
+    within two bf16 steps at the output's largest magnitude, f32 within
+    1e-5 of it; two launches bit for bit, each counted; channels-last
+    out."""
+    _require_card()
+    from svtpu_torch.ops.group_norm import (group_norm_silu,
+                                            group_norm_silu_plain)
+
+    c, h, w, silu = GN_SHAPES[shape]
+    dt = getattr(torch, dtype)
+    x, weight, bias = _gn_inputs(c, h, w, dt, c + h)
+    before = group_norm_silu.launches
+    with torch.inference_mode():
+        got = group_norm_silu(x, weight, bias, 1e-6, silu, dt)
+        again = group_norm_silu(x, weight, bias, 1e-6, silu, dt)
+        want = group_norm_silu_plain(x, weight, bias, 1e-6, silu, dt).float()
+    assert group_norm_silu.launches == before + 2
+    assert got.dtype == dt and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, again)
+    if dt == torch.bfloat16:
+        _within_two_steps(got, want)
+    else:
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_group_norm_silu_layouts_and_refusals():
+    """An NCHW input is made channels-last first (the same bits), and
+    weights held as ``nn.Parameter``s give the tensors' bits; the card's
+    route refuses float16, a change of dtype and a tensor that
+    needs a gradient, and launches nothing for them."""
+    _require_card()
+    from svtpu_torch.ops.group_norm import group_norm_silu
+
+    x, weight, bias = _gn_inputs(256, 40, 72, torch.bfloat16, 3)
+    with torch.inference_mode():
+        cl = group_norm_silu(x, weight, bias, 1e-6, True, torch.bfloat16)
+        nchw = group_norm_silu(x.contiguous(), weight, bias, 1e-6, True,
+                               torch.bfloat16)
+    assert torch.equal(cl, nchw)
+    held = [torch.nn.Parameter(t.clone()) for t in (weight, bias)]
+    with torch.inference_mode():
+        assert torch.equal(cl, group_norm_silu(x, *held, 1e-6, True,
+                                               torch.bfloat16))
+    before = group_norm_silu.launches
+    with pytest.raises(TypeError):
+        group_norm_silu(x.half(), weight, bias, 1e-6, True, torch.float16)
+    with pytest.raises(TypeError):
+        group_norm_silu(x, weight, bias, 1e-6, True, torch.float32)
+    with pytest.raises(RuntimeError):
+        group_norm_silu(x, weight.requires_grad_(), bias, 1e-6, True,
+                        torch.bfloat16)
+    assert group_norm_silu.launches == before
+
+
+@pytest.mark.cuda
+def test_sd_encoder_on_the_card_matches_the_cpu():
+    """An SD encoder at widths 128-256-512 with seeded norm weights, its
+    norms through the kernel on the card (12 launches), against the same
+    model on the CPU: float32, TF32 off, within 1e-4 of the moments'
+    largest magnitude."""
+    _require_card()
+    from svtpu_torch.config import PerceptualConfig
+    from svtpu_torch.models.autoencoder_kl import AutoencoderKL, GroupNormSiLU
+    from svtpu_torch.ops.group_norm import group_norm_silu
+
+    cfg = PerceptualConfig(embed_dim=4, z_channels=4, ch=128,
+                           ch_mult=(1, 2, 4), num_res_blocks=1,
+                           compute_dtype="float32")
+    cpu = AutoencoderKL(cfg, device="cpu", use_kernel=False,
+                        generator=torch.Generator().manual_seed(8))
+    g = torch.Generator().manual_seed(9)
+    sd = cpu.state_dict()
+    norms = [n for n, m in cpu.encoder.named_modules()
+             if isinstance(m, GroupNormSiLU)]
+    for n in norms:
+        sd[f"encoder.{n}.weight"] = torch.rand(sd[f"encoder.{n}.weight"]
+                                               .shape, generator=g) + 0.5
+        sd[f"encoder.{n}.bias"] = torch.randn(sd[f"encoder.{n}.bias"].shape,
+                                              generator=g)
+    cpu.load_state_dict(sd)
+    card = AutoencoderKL(cfg, device="cuda", use_kernel=False)
+    card.load_state_dict(sd)
+    x = torch.from_numpy(np.random.default_rng(10).uniform(
+        -1, 1, (2, 48, 80, 3)).astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = cpu.encode(x)
+            before = group_norm_silu.launches
+            got = card.encode(x.cuda()).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert len(norms) == 12 and group_norm_silu.launches == before + 12
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
